@@ -1,0 +1,399 @@
+"""Concentrated (reduced) GP log-likelihood, GLS inner parameters and the
+analytic likelihood adjoint (port of egobox_tpu/gp/likelihood.py).
+
+- R is assembled from the kernel Gram (unit diagonal + Gershgorin-scaled
+  nugget), optionally masked so a padded design computes the exact
+  likelihood of its active rows;
+- a failed factorization (non-PD R, ill-conditioned Ft) gives a -inf
+  likelihood, never an exception, so a multistart simply discards that
+  theta (ref: algorithm.rs:893-896);
+- the gradient never differentiates through the n x n Cholesky: it is the
+  closed-form trace contraction evaluated from the kept factorization.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops.chol_kernel import PRECISIONS, cholesky_nan, panel_cholesky
+from .kernels import _SQRT3, _SQRT5, _DENSE_BUDGET, _theta_w, corr_cross
+from .trends import trend_basis
+
+_LN10 = 2.302585092994046
+
+#: matrices at or below this order always take the library Cholesky
+_CHOL_NATIVE_MAX = 4096
+
+#: seed of the fixed Rademacher probes of the stochastic sqexp gradient
+_PROBE_SEED = 0xE60B0
+
+
+def _cholesky(r: torch.Tensor) -> torch.Tensor:
+    """Cholesky dispatch for the likelihood hot path.
+
+    ``EGOBOX_CHOL`` is read at every call (egobox_tpu reads it when a
+    function is traced):
+
+    - unset / ``native``: ``torch.linalg.cholesky_ex``;
+    - ``pallas:<block>:<prec>`` (e.g. ``pallas:256:highest``): the blocked
+      Cholesky whose panels run the K2 kernel (ops/chol_kernel.py), trailing
+      GEMMs at ``prec``.
+
+    Matrices with n <= 4096 always take the native path. egobox_tpu's
+    ``blk:`` variant is not ported and raises. A non-PD R gives NaN.
+    """
+    spec = os.environ.get("EGOBOX_CHOL", "native")
+    parts = spec.split(":")
+    if spec != "native" and not (
+        len(parts) == 3 and parts[0] == "pallas" and parts[1].isdigit()
+        and parts[2] in PRECISIONS
+    ):
+        raise ValueError(
+            f"EGOBOX_CHOL={spec!r}: egobox_torch supports 'native' and "
+            "'pallas:<block>:<highest|high|default>'"
+        )
+    if spec == "native" or r.shape[-1] <= _CHOL_NATIVE_MAX:
+        return cholesky_nan(r)
+    return panel_cholesky(r, block=int(parts[1]), precision=parts[2])
+
+
+class GpInnerParams(NamedTuple):
+    """GLS byproducts reused by predict (ref: algorithm.rs:47-60)."""
+
+    sigma2: torch.Tensor  # process variance, denormalized (scalar)
+    beta: torch.Tensor  # (p, 1) GLS trend coefficients
+    gamma: torch.Tensor  # (n, 1) correlation weights
+    r_chol: torch.Tensor  # (n, n) lower Cholesky of R
+    ft: torch.Tensor  # (n, p) L^-1 F
+    ft_qr_r: torch.Tensor  # (p, p) R factor of qr(ft)
+
+
+def _build_r(corr, x_norm, theta, w_star, nugget, mask):
+    """Assemble the regularized correlation matrix R.
+
+    The jitter is ``nugget`` times the largest Gershgorin row sum of R
+    (not differentiated): it keeps chol(R) well-posed for any theta while
+    leaving well-conditioned fits (row sums ~ 1) untouched. With a mask the
+    padded block is the identity. The diagonal is written in place on the
+    fresh Gram tensor."""
+    r = corr_cross(corr, x_norm, x_norm, theta, w_star)
+    r.diagonal().fill_(1.0)  # exact unit diagonal
+    if mask is not None:
+        m = mask.to(r.dtype)
+        r.mul_(m[:, None] * m[None, :])
+        r.diagonal().fill_(1.0)
+    row_max = torch.max(torch.sum(torch.abs(r), dim=1)).detach()
+    r.diagonal().add_(nugget * torch.clamp(row_max, min=1.0))
+    return r
+
+
+def _solve_lower(l_fac, b):
+    return torch.linalg.solve_triangular(l_fac, b, upper=False)
+
+
+def _solve_upper(u_fac, b):
+    return torch.linalg.solve_triangular(u_fac, b, upper=True)
+
+
+def reduced_likelihood(
+    corr: str,
+    trend: str,
+    x_norm: torch.Tensor,
+    y_norm: torch.Tensor,
+    y_std: torch.Tensor,
+    theta: torch.Tensor,
+    w_star: Optional[torch.Tensor],
+    nugget: float,
+    mask: Optional[torch.Tensor] = None,
+):
+    """Return (reduced_likelihood, GpInnerParams).
+
+    ``x_norm`` (n, nx), ``y_norm`` (n, 1) are normalized training data;
+    ``mask`` (n,) bool marks active rows (None = all active). The likelihood
+    is the reference's ``-n (log10 sigma2 + log10 det(R)^{2/n})``.
+    """
+    n = x_norm.shape[0]
+    dtype = x_norm.dtype
+    r = _build_r(corr, x_norm, theta, w_star, nugget, mask)
+
+    fx = trend_basis(trend, x_norm)
+    if mask is not None:
+        m = mask.to(dtype)
+        fx = fx * m[:, None]
+        y_norm = y_norm * m[:, None]
+        n_obs = torch.sum(m)
+    else:
+        n_obs = torch.tensor(float(n), dtype=dtype, device=x_norm.device)
+
+    l_chol = _cholesky(r)
+    del r
+    ft = _solve_lower(l_chol, fx)
+    # GLS normal equations via the (p, p) Gram of Ft: the R factor of
+    # qr(Ft) up to signs
+    c = cholesky_nan(ft.T @ ft)  # lower; R_qr = c.T
+    r_qr = c.T
+
+    # ill-conditioning guard via the R-factor diagonal (ref SVD cond
+    # check, algorithm.rs:1009-1027)
+    dq = torch.abs(torch.diagonal(c))
+    cond_ok = (torch.min(dq) / torch.clamp(torch.max(dq), min=1e-300)) > 1e-10
+
+    yt = _solve_lower(l_chol, y_norm)
+    fty = ft.T @ yt
+    beta = _solve_upper(c.T, _solve_lower(c, fty))
+    rho = yt - ft @ beta
+    gamma = _solve_upper(l_chol.T, rho)
+
+    # det(R) = prod diag(L)^2; padded diagonal entries are 1 -> log 0
+    logdet = 2.0 * torch.sum(torch.log10(torch.diagonal(l_chol))) / n_obs
+    sigma2_norm = torch.sum(rho**2) / n_obs
+    rlf = -n_obs * (torch.log10(sigma2_norm) + logdet)
+    rlf = torch.where(torch.isfinite(rlf) & cond_ok, rlf,
+                      torch.full_like(rlf, -float("inf")))
+
+    inner = GpInnerParams(
+        sigma2=sigma2_norm * (y_std.reshape(()) ** 2),
+        beta=beta,
+        gamma=gamma,
+        r_chol=l_chol,
+        ft=ft,
+        ft_qr_r=r_qr,
+    )
+    return rlf, inner
+
+
+def _sqexp_dphi(c, x_norm, theta, w_star):
+    """Closed-form trace contraction for the squared-exponential kernel:
+    phi(theta) = sum C o log r = -1/2 sum_k c_k(theta) S_k with
+    S_k = sum_ij C_ij (x_ik - x_jk)^2, as three matmul-shaped reductions."""
+    u = torch.sum(c, dim=1)  # C 1
+    v = torch.sum(c, dim=0)  # 1^T C
+    x2 = x_norm * x_norm
+    w = c @ x_norm
+    s = u @ x2 + v @ x2 - 2.0 * torch.sum(x_norm * w, dim=0)  # (nx,)
+    if w_star is None:
+        return -theta * s
+    # c_k = sum_l theta_l^2 w_kl^2 -> dphi/dtheta_l = -theta_l sum_k w_kl^2 S_k
+    return -theta * ((w_star**2).T @ s)
+
+
+def _dlog_term(name: str, u: torch.Tensor) -> torch.Tensor:
+    """d/du of the per-dim log-kernel term of the L1 family."""
+    if name == "absolute_exponential":
+        return torch.full_like(u, -1.0)
+    if name == "matern32":
+        return -3.0 * u / (1.0 + _SQRT3 * u)
+    if name == "matern52":
+        a = 1.0 + _SQRT5 * u
+        return -(5.0 / 3.0) * u * a / (a + (5.0 / 3.0) * u * u)
+    raise ValueError(f"unknown kernel: {name}")
+
+
+def _l1_dphi(name, c, x_norm, theta, w_star):
+    """sum_ij C_ij d log r_ij / d theta for absexp / Matern, in closed form
+    per row block: no (n, n, nx) tensor is ever held.
+
+    With u_jl = |d_j| theta_l |w_jl| (u_j = |d_j| theta_j without KPLS),
+    d log r / d theta_l = sum_j term'(u_jl) |d_j| |w_jl|."""
+    n, nx = x_norm.shape
+    thw = _theta_w(name, theta, w_star)
+    per_pair = nx * (1 if w_star is None else w_star.shape[1])
+    rows = max(1, _DENSE_BUDGET // max(1, n * per_pair))
+    out = torch.zeros_like(theta)
+    for s in range(0, n, rows):
+        dabs = torch.abs(x_norm[s:s + rows, None, :] - x_norm[None, :, :])
+        cb = c[s:s + rows]
+        if w_star is None:
+            t = _dlog_term(name, dabs * thw) * dabs
+            out = out + torch.einsum("ij,ijk->k", cb, t)
+        else:
+            dabs = dabs[..., None]
+            t = _dlog_term(name, dabs * thw) * dabs
+            out = out + torch.einsum("ij,ijkl,kl->l", cb, t,
+                                     torch.abs(w_star))
+    return out
+
+
+def _rademacher_probes(n: int, probes: int, dtype, device) -> torch.Tensor:
+    """The fixed (n, probes) Rademacher probes of the stochastic gradient,
+    from a generator seeded with a constant: every gradient evaluation of a
+    fit sees the same estimate. torch's stream differs from JAX's
+    (key 0xE60B0); tests replace this function to inject JAX's probes."""
+    gen = torch.Generator().manual_seed(_PROBE_SEED)
+    z = torch.randint(0, 2, (n, probes), generator=gen)
+    return (2 * z - 1).to(dtype=dtype, device=device)
+
+
+def _sqexp_dphi_stoch(x_norm, w_star, theta, l_chol, gamma, sigma2_norm,
+                      probes):
+    """Hutchinson estimate of the squared-exponential trace contraction
+    s_k = sum_ij C_ij D_k,ij with C = (R^-1 - gamma gamma^T / sigma2) o R
+    and D_k,ij = (x_ik - x_jk)^2, without forming R^-1:
+
+        t_k = tr(R^-1 (R o D_k)) ~= (1/p) sum_z z^T R^-1 (R o D_k) z
+
+    where every (R o D_k) v expands into R-matvecs through
+    D_k,ij = x2_ik + x2_jk - 2 x_ik x_jk, and each R-matvec rides the kept
+    factor R = L L^T: O(n^2 d p) instead of O(n^3). The rank-1 gamma term
+    is exact. Probes are fixed (``_rademacher_probes``)."""
+    n, nx = x_norm.shape
+    z = _rademacher_probes(n, probes, x_norm.dtype, x_norm.device)
+    g = gamma[:, 0]
+    w = _solve_upper(l_chol.T, _solve_lower(l_chol, z))  # R^-1 Z
+    x2 = x_norm * x_norm
+    v3 = (x_norm[:, :, None] * z[:, None, :]).reshape(n, nx * probes)
+    v4 = x_norm * g[:, None]
+    u = torch.cat([z, w, v3, v4, g[:, None]], dim=1)
+    ru = l_chol @ (l_chol.T @ u)
+    a = ru[:, :probes]  # R Z
+    b = ru[:, probes:2 * probes]  # R W
+    gmat = ru[:, 2 * probes:(2 + nx) * probes].reshape(n, nx, probes)
+    rv4 = ru[:, (2 + nx) * probes:(2 + nx) * probes + nx]  # R (x_k o g)
+    rg = ru[:, -1]  # R g
+    h = torch.sum(w * a + z * b, dim=1)
+    term12 = x2.T @ h  # (nx,)
+    m3 = torch.sum(w[:, None, :] * gmat, dim=2)  # (n, nx)
+    term3 = torch.sum(x_norm * m3, dim=0)
+    t = (term12 - 2.0 * term3) / probes
+    q = torch.sum(v4 * rv4, dim=0)
+    ug = 2.0 * (x2.T @ (g * rg)) - 2.0 * q
+    s = t - ug / torch.clamp(sigma2_norm, min=1e-300)
+    if w_star is None:
+        return -theta * s
+    return -theta * ((w_star**2).T @ s)
+
+
+def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
+                     gamma, sigma2_norm, stoch_probes=0):
+    """d(n ln s2 + ln det R)/dtheta from the factorization residuals
+    (theta, L, gamma, sigma2), as the sum over C o d log r / d theta with
+    C = (R^-1 - gamma gamma^T / s2) o R.
+
+    ``stoch_probes > 0`` routes the squared-exponential kernel to the
+    Hutchinson estimate (kill-switch EGOBOX_NO_STOCH_GRAD=1); everything
+    else takes the exact R^-1 = L^-T L^-1."""
+    if (
+        stoch_probes
+        and corr == "squared_exponential"
+        and os.environ.get("EGOBOX_NO_STOCH_GRAD") != "1"
+    ):
+        return _sqexp_dphi_stoch(
+            x_norm, w_star, theta, l_chol, gamma, sigma2_norm, stoch_probes
+        )
+    n = x_norm.shape[0]
+    eye = torch.eye(n, dtype=x_norm.dtype, device=x_norm.device)
+    li = _solve_lower(l_chol, eye)
+    del eye
+    c = li.T @ li  # R^-1
+    del li
+    c.sub_(gamma @ gamma.T / torch.clamp(sigma2_norm, min=1e-300))
+    c.mul_(_build_r(corr, x_norm, theta, w_star, nugget, mask))
+    if mask is not None:
+        m = mask.to(x_norm.dtype)
+        c.mul_(m[:, None] * m[None, :])
+    if corr == "squared_exponential":
+        return _sqexp_dphi(c, x_norm, theta, w_star)
+    return _l1_dphi(corr, c, x_norm, theta, w_star)
+
+
+class _NegRlf(torch.autograd.Function):
+    """-rlf(theta) with the analytic adjoint: forward keeps (theta, L,
+    gamma, sigma2_norm), backward is the trace contraction; autograd never
+    sees the Cholesky."""
+
+    @staticmethod
+    def forward(ctx, theta, problem):
+        rlf, inner = reduced_likelihood(
+            problem["corr"], problem["trend"], problem["x_norm"],
+            problem["y_norm"], problem["y_std"], theta, problem["w_star"],
+            problem["nugget"], problem["mask"],
+        )
+        sigma2_norm = inner.sigma2 / (problem["y_std"].reshape(()) ** 2)
+        ctx.problem = problem
+        ctx.save_for_backward(theta, inner.r_chol, inner.gamma, sigma2_norm)
+        return -rlf
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, l_chol, gamma, sigma2_norm = ctx.saved_tensors
+        p = ctx.problem
+        dphi = _grad_trace_core(
+            p["corr"], p["x_norm"], p["w_star"], p["nugget"], p["mask"],
+            theta, l_chol, gamma, sigma2_norm, p["stoch_probes"],
+        )
+        grad = g * dphi / _LN10
+        return torch.where(torch.isfinite(grad), grad,
+                           torch.zeros_like(grad)), None
+
+
+def make_neg_reduced_likelihood(
+    corr: str,
+    trend: str,
+    x_norm: torch.Tensor,
+    y_norm: torch.Tensor,
+    y_std: torch.Tensor,
+    w_star: Optional[torch.Tensor],
+    nugget: float,
+    mask: Optional[torch.Tensor] = None,
+    stoch_probes: int = 0,
+):
+    """Negative reduced likelihood f(theta), differentiable by autograd
+    through its analytic adjoint (envelope theorem over the GLS beta and
+    sigma^2):
+
+        d/dtheta [ n ln s2 + ln det R ]
+            = sum_ij [ (R^-1 - a a^T / s2) o R ]_ij  d log r_ij / d theta
+
+    with a = R^-1 (y - F beta) (== gamma)."""
+    problem = dict(corr=corr, trend=trend, x_norm=x_norm, y_norm=y_norm,
+                   y_std=y_std, w_star=w_star, nugget=nugget, mask=mask,
+                   stoch_probes=stoch_probes)
+
+    def neg_rlf(theta):
+        return _NegRlf.apply(theta, problem)
+
+    return neg_rlf
+
+
+def make_neg_rlf_residual_api(
+    corr: str,
+    trend: str,
+    x_norm: torch.Tensor,
+    y_norm: torch.Tensor,
+    y_std: torch.Tensor,
+    w_star: Optional[torch.Tensor],
+    nugget: float,
+    mask: Optional[torch.Tensor] = None,
+    stoch_probes: int = 0,
+):
+    """Residual-reuse objective in log10(theta) for the L-BFGS:
+
+    - ``fun_and_res(t_log10) -> (f, (theta, rlf, inner))``: the forward,
+      keeping the factorization;
+    - ``grad_from_res(t_log10, res) -> g``: the analytic adjoint from those
+      residuals, with no forward recomputation."""
+
+    def fun_and_res(t_log10):
+        theta = 10.0**t_log10
+        rlf, inner = reduced_likelihood(
+            corr, trend, x_norm, y_norm, y_std, theta, w_star, nugget, mask
+        )
+        return -rlf, (theta, rlf, inner)
+
+    def grad_from_res(t_log10, res):
+        theta, _rlf, inner = res
+        sigma2_norm = inner.sigma2 / (y_std.reshape(()) ** 2)
+        dphi = _grad_trace_core(
+            corr, x_norm, w_star, nugget, mask, theta, inner.r_chol,
+            inner.gamma, sigma2_norm, stoch_probes,
+        )
+        # d(-rlf)/dtheta = dphi/ln10; through theta = 10^t the ln10
+        # cancels: d(-rlf)/dt = dphi * theta
+        grad = dphi * theta
+        return torch.where(torch.isfinite(grad), grad,
+                           torch.zeros_like(grad))
+
+    return fun_and_res, grad_from_res

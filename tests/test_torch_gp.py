@@ -1,0 +1,159 @@
+"""The ported slice end to end: egobox_torch's ``fit_gp`` -> predict against
+egobox_tpu's, float64 on numpy inputs; the goldens, serving a JAX-fitted
+model, and the package boundary. (The fits that draw random numbers are in
+test_torch_fit.py.)
+
+Tolerances: theta rel 1e-5, likelihood rel 1e-8, predict and variance atol
+1e-8. They hold for well-posed fits: the fits here carry a 1e-6 nugget
+(or the recipe's 1e-3). At the default nugget (100 eps) a smooth 200-point
+squared-exponential Gram is so ill-conditioned (|gamma| ~ 4e10) that
+last-bit differences of the two linear-algebra libraries move the L-BFGS
+end point by 5e-4 relative in theta.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from egobox_tpu import gp as jgp
+from egobox_torch import gp as tgp
+from egobox_torch.convert import gp_model_from_numpy
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _data(n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2.0, 2.0, (n, d))
+    y = np.sum(np.sin(2.0 * x), axis=1) + 0.05 * rng.standard_normal(n)
+    return x, y
+
+
+def _assert_same_model(mt, mj, x_test):
+    np.testing.assert_allclose(mt.theta.numpy(), np.asarray(mj.theta),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mt.likelihood), float(mj.likelihood),
+                               rtol=1e-8)
+    xt = torch.from_numpy(x_test)
+    mean_t, var_t = tgp.predict_valvar(mt, xt)
+    np.testing.assert_allclose(
+        mean_t.numpy(), np.asarray(jgp.predict(mj, jnp.asarray(x_test))),
+        rtol=0, atol=1e-8)
+    np.testing.assert_allclose(
+        var_t.numpy(), np.asarray(jgp.predict_var(mj, jnp.asarray(x_test))),
+        rtol=0, atol=1e-8)
+    torch.testing.assert_close(tgp.predict(mt, xt), mean_t, rtol=0, atol=0)
+    torch.testing.assert_close(tgp.predict_var(mt, xt), var_t, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("corr", ["matern52", "squared_exponential"])
+def test_fit_predict_matches_jax(corr):
+    x, y = _data(200, 3, 0)
+    x_test = np.random.default_rng(1).uniform(-2.0, 2.0, (25, 3))
+    mt = tgp.fit_gp(x, y, corr=corr, n_start=0, nugget=1e-6)
+    mj = jgp.fit_gp(x, y, corr=corr, n_start=0, nugget=1e-6)
+    assert mt.theta.dtype == torch.float64
+    _assert_same_model(mt, mj, x_test)
+
+
+def test_fixed_theta_and_partial_tuning_match_jax():
+    x, y = _data(50, 3, 6)
+    for kw in (dict(theta_init=[0.5, 0.7, 0.9], theta_fixed=True),
+               dict(theta_init=0.3, active=[0, 2], n_start=0)):
+        mt = tgp.fit_gp(x, y, corr="absolute_exponential", **kw)
+        mj = jgp.fit_gp(x, y, corr="absolute_exponential", **kw)
+        _assert_same_model(mt, mj, x[:7] + 0.01)
+    assert float(mt.theta[1]) == pytest.approx(0.3, rel=1e-12)
+
+
+@pytest.fixture(scope="module")
+def kriging_1d():
+    xt = np.array([[0.0], [1.0], [2.0], [3.0], [4.0]])
+    yt = np.array([0.0, 1.0, 1.5, 0.9, 1.0])
+    return tgp.fit_gp(xt, yt), xt, yt
+
+
+def test_kriging_interpolation(kriging_1d):
+    model, xt, yt = kriging_1d
+    x = torch.from_numpy(xt)
+    np.testing.assert_allclose(tgp.predict(model, x).numpy(), yt, atol=1e-8)
+    np.testing.assert_allclose(tgp.predict_var(model, x).numpy(), 0.0,
+                               atol=1e-8)
+
+
+def test_kriging_point_goldens(kriging_1d):
+    """Reference goldens (test_gpmix.py:38-52) that need no gradients:
+    predict(1.1) = 1.1163 +- 1e-3, var(1.1) ~ 0."""
+    model, _, _ = kriging_1d
+    x = torch.tensor([[1.1]], dtype=torch.float64)
+    assert abs(float(tgp.predict(model, x)[0]) - 1.1163) < 1e-3
+    assert abs(float(tgp.predict_var(model, x)[0])) < 1e-3
+
+
+@pytest.mark.parametrize("kpls", [False, True])
+def test_jax_fitted_model_served_by_port(kpls):
+    x, y = _data(80, 4, 7)
+    mj = jgp.fit_gp(x, y, corr="matern52", n_start=2, nugget=1e-6,
+                    kpls_dim=2 if kpls else None)
+    fields = {k: (None if getattr(mj, k) is None
+                  else np.asarray(getattr(mj, k)))
+              for k in mj.__dataclass_fields__ if k not in ("corr", "trend")}
+    mt = gp_model_from_numpy(fields, mj.corr, mj.trend)
+    assert (mt.w_star is None) == (not kpls)
+    x_test = np.random.default_rng(8).uniform(-2.0, 2.0, (30, 4))
+    mean, var = tgp.predict_valvar(mt, torch.from_numpy(x_test))
+    np.testing.assert_allclose(
+        mean.numpy(), np.asarray(jgp.predict(mj, jnp.asarray(x_test))),
+        rtol=0, atol=1e-8)
+    np.testing.assert_allclose(
+        var.numpy(), np.asarray(jgp.predict_var(mj, jnp.asarray(x_test))),
+        rtol=0, atol=1e-8)
+
+
+def test_gp_model_from_numpy_rejects_missing_fields():
+    with pytest.raises(ValueError, match="missing"):
+        gp_model_from_numpy({"theta": np.ones(2)}, "matern52", "constant")
+
+
+def test_nonfinite_likelihood_raises_gp_fit_error():
+    x, y = _data(20, 2, 8)
+    y[3] = np.nan
+    with pytest.raises(tgp.GpFitError):
+        tgp.fit_gp(x, y, n_start=0, max_iters=2)
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
+                                dict(rank_warmstart=500),
+                                dict(subsample_warmstart2=50),
+                                dict(ls_batch=4)])
+def test_unported_options_raise(kw):
+    x, y = _data(20, 2, 9)
+    with pytest.raises(NotImplementedError):
+        tgp.fit_gp(x, y, **kw)
+
+
+def test_input_validation():
+    x, y = _data(20, 2, 9)
+    with pytest.raises(ValueError, match="multi-output"):
+        tgp.fit_gp(x, np.stack([y, y], axis=1))
+    with pytest.raises(ValueError, match="kpls_dim"):
+        tgp.fit_gp(x, y, kpls_dim=3)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, egobox_torch, egobox_torch.gp, "
+            "egobox_torch.convert, egobox_torch.ops.build; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'egobox_tpu', 'triton')]; "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
