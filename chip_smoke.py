@@ -8,18 +8,27 @@ Phases (any failure raises and the script exits non-zero):
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``egobox_torch/csrc``;
 3. K1 (Gram tile) against ``corr_cross_plain`` on the card, float32;
-4. K2 (Cholesky panel) against float64 ``torch.linalg.cholesky``;
+4. K2 (Cholesky panel) against ``factor_panel_plain`` on the card at every
+   block width the tests use (ragged ones included) and m in {b, b+1,
+   1024, 10240}, and the K2-driven Cholesky against float64
+   ``torch.linalg.cholesky``; times the diagonal-only 256x256 panel, the
+   10240x256 panel and the n=10240 Cholesky beside ``cholesky_ex``;
 5. the slice: the dense kriging fit at n=10000, d=10 (Matern 5/2, K2-driven
-   Cholesky) on Griewank data, then predict on 2000 holdout points.
+   Cholesky) on Griewank data, given as numpy with no device (the entry
+   point's default, the card), then predict on 2000 holdout points.
 
-It prints one JSON line describing the kernels, then, as its last line,
-``{"ok": true, "device": {...}}``. Needs no network and imports no JAX.
+It prints one JSON line describing the kernels (with each one's bound: the
+least time the card could take for the same work, from the bytes it must
+move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
+as its last line, ``{"ok": true, "device": {...}}``. Needs no network and
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -34,6 +43,10 @@ FIT_KW = dict(corr="matern52", n_start=1, max_iters=4, nugget=1e-3,
               subsample_warmstart=2000, sub_draws=3, polish_iters=1,
               polish_tr=True)
 K1_ATOL = 2e-6
+K2_ATOL = 5e-5  # tests/test_pallas_chol.py's panel target
+K2_WIDTHS = (32, 65, 128, 200, 256, 339)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores
 Q2_MIN = 0.98  # bench.py:125
 DEV = "cuda"
 
@@ -66,8 +79,10 @@ def import_port():
     return egobox_torch
 
 
-def time_ms(torch, fn, reps=5):
-    """Median CUDA-event time of ``fn`` in ms, after one warm-up call."""
+def time_ms(torch, fn, reps=5, batch=10):
+    """Median over ``reps`` of the CUDA-event time of ``batch`` calls of
+    ``fn`` in a row, per call in ms, after one warm-up call. The calls
+    queue up, so the host's launch cost is hidden as it is in a loop."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -75,11 +90,25 @@ def time_ms(torch, fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """Least time in ms for the work and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_bound(m, b):
+    """One panel: factor b^3/3 flops, solve of the m-b rows below
+    (m-b) b^2; a read once and the result written once, float32."""
+    return bound(2 * 4 * m * b, b**3 / 3 + (m - b) * b * b)
 
 
 def griewank(x):
@@ -120,10 +149,16 @@ def k1_phase(torch, ck):
     ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", x, x, th))
     plain_ms = time_ms(torch, lambda: ck.corr_cross_plain("matern52", x, x,
                                                           th))
+    # matern52 per output: per feature sub, scale, sqrt5 u, 5/3 u^2 (2),
+    # add, log1p, subtract (8 counting log1p as one); one exp per output
+    bound_ms, bound_by = bound(4 * (2 * N_TRAIN * DIM + DIM + N_TRAIN**2),
+                               N_TRAIN**2 * (8 * DIM + 1))
     print(f"K1 corr_tile: {3 * len(cases)} cases, max abs err {worst!r} "
           f"(atol {K1_ATOL}); matern52 10000x10000 d=10: kernel {ms!r} ms, "
-          f"plain {plain_ms!r} ms", flush=True)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+          f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by})",
+          flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def _spd(torch, n, seed):
@@ -133,16 +168,41 @@ def _spd(torch, n, seed):
     return a @ a.T + 2.0 * torch.eye(n, dtype=torch.float64, device=DEV)
 
 
+def _panel(torch, m, b, seed):
+    """[A00; B]: a well-conditioned SPD diagonal block over random rows."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    a = torch.randn((b, b), generator=g, device=DEV) / b**0.5
+    a00 = a @ a.T + 2.0 * torch.eye(b, device=DEV)
+    rows = torch.randn((m - b, b), generator=g, device=DEV) / b**0.5
+    return torch.cat([a00, rows]).contiguous()
+
+
+def slice_r(torch, lik, n=10_240):
+    """The slice's own kind of matrix for K2: the Matern 5/2 R of n
+    normalized uniform inputs with the Gershgorin-scaled 1e-3 nugget."""
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-600.0, 600.0, (n, DIM))
+    x = (x - x.mean(0)) / x.std(0, ddof=1)
+    xt = torch.tensor(x, dtype=torch.float32, device=DEV)
+    th = torch.full((DIM,), 0.3, dtype=torch.float32, device=DEV)
+    return lik._build_r("matern52", xt, th, None, 1e-3, None)
+
+
 def k2_phase(torch, chk, lik):
-    """K2 against float64 torch.linalg.cholesky."""
-    # one panel, the shape of tests/test_pallas_chol.py
-    r = _spd(torch, 1024, 0)
-    l64 = torch.linalg.cholesky(r)
-    out = chk.factor_panel(r[:, :256].float().contiguous())
-    torch.cuda.synchronize()
-    panel_err = float(torch.max(torch.abs(out.double() - l64[:, :256])))
-    if not panel_err <= 5e-5:
-        raise RuntimeError(f"K2 factor_panel 1024x256: {panel_err:.3g}")
+    """K2 against its plain version at every tested width, and the
+    K2-driven Cholesky against float64 torch.linalg.cholesky."""
+    worst = 0.0
+    for b in K2_WIDTHS:
+        for m in (b, b + 1, 1024, 10_240):
+            panel = _panel(torch, m, b, m + b)
+            got = chk.factor_panel(panel)
+            ref = chk.factor_panel_plain(panel)
+            torch.cuda.synchronize()
+            err = float(torch.max(torch.abs(got - ref)))
+            if not err <= K2_ATOL:
+                raise RuntimeError(f"K2 factor_panel {m}x{b}: max abs err "
+                                   f"{err:.3g} > {K2_ATOL}")
+            worst = max(worst, err)
     # the full blocked Cholesky, 5 panels
     r = _spd(torch, 1280, 1)
     l_k2 = chk.panel_cholesky(r.float(), block=256)
@@ -150,14 +210,7 @@ def k2_phase(torch, chk, lik):
                                         - torch.linalg.cholesky(r))))
     if not err1280 <= 2e-4:
         raise RuntimeError(f"K2 panel_cholesky n=1280: {err1280:.3g}")
-    # n=10240 on the slice's own kind of matrix: the Matern 5/2 R of
-    # normalized Griewank inputs with the Gershgorin-scaled 1e-3 nugget
-    rng = np.random.default_rng(2)
-    x = rng.uniform(-600.0, 600.0, (10_240, DIM))
-    x = (x - x.mean(0)) / x.std(0, ddof=1)
-    xt = torch.tensor(x, dtype=torch.float32, device=DEV)
-    th = torch.full((DIM,), 0.3, dtype=torch.float32, device=DEV)
-    r32 = lik._build_r("matern52", xt, th, None, 1e-3, None)
+    r32 = slice_r(torch, lik)
     l64 = torch.linalg.cholesky(r32.double())
     l_k2 = chk.panel_cholesky(r32, block=256)
     l_lib = torch.linalg.cholesky_ex(r32)[0]
@@ -170,29 +223,46 @@ def k2_phase(torch, chk, lik):
     if not err_k2 <= tol:
         raise RuntimeError(f"K2 panel_cholesky n=10240: {err_k2:.3g} > "
                            f"{tol:.3g} (library f32: {err_lib:.3g})")
-    chol_ms = time_ms(torch, lambda: chk.panel_cholesky(r32, block=256))
-    lib_ms = time_ms(torch, lambda: torch.linalg.cholesky_ex(r32))
+    del l64, l_k2, l_lib
+    chol_ms = time_ms(torch, lambda: chk.panel_cholesky(r32, block=256),
+                      batch=2)
+    lib_ms = time_ms(torch, lambda: torch.linalg.cholesky_ex(r32), batch=2)
+    diag = r32[:256, :256].contiguous()
     a_panel = r32[:, :256].contiguous()
+    diag_ms = time_ms(torch, lambda: chk.factor_panel(diag))
     ms = time_ms(torch, lambda: chk.factor_panel(a_panel))
     plain_ms = time_ms(torch, lambda: chk.factor_panel_plain(a_panel))
-    print(f"K2 factor_panel: 1024x256 max abs err {panel_err!r} (atol 5e-5);"
-          f" n=1280 {err1280!r} (atol 2e-4); n=10240 {err_k2!r} (tol "
-          f"{tol!r}, library f32 {err_lib!r}); panel 10240x256: kernel "
-          f"{ms!r} ms, plain {plain_ms!r} ms; Cholesky n=10240: "
-          f"K2-driven {chol_ms!r} ms, cholesky_ex {lib_ms!r} ms", flush=True)
-    del r32, l64, l_k2, l_lib
+    bound_ms, bound_by = k2_bound(10_240, 256)
+    diag_bound_ms, _ = k2_bound(256, 256)
+    n = 10_240
+    chol_bound_ms, _ = bound(2 * 4 * n * n, n**3 / 3)
+    print(f"K2 factor_panel: {len(K2_WIDTHS) * 4} panels b in {K2_WIDTHS} "
+          f"max abs err {worst!r} (atol {K2_ATOL}); n=1280 {err1280!r} "
+          f"(atol 2e-4); n=10240 {err_k2!r} (tol {tol!r}, library f32 "
+          f"{err_lib!r}); panel 256x256: kernel {diag_ms!r} ms (bound "
+          f"{diag_bound_ms!r}); panel 10240x256: kernel {ms!r} ms, plain "
+          f"{plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}); Cholesky "
+          f"n=10240: K2-driven {chol_ms!r} ms, cholesky_ex {lib_ms!r} ms, "
+          f"bound {chol_bound_ms!r} ms", flush=True)
+    del r32
     torch.cuda.empty_cache()
-    return dict(max_abs_err=panel_err, ms=ms, plain_ms=plain_ms,
-                chol_ms=chol_ms, cholesky_ex_ms=lib_ms)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library_call="torch.linalg.cholesky_ex n=10240, beside "
+                             "chol_ms",
+                diag_ms=diag_ms, diag_bound_ms=diag_bound_ms,
+                chol_ms=chol_ms, chol_bound_ms=chol_bound_ms)
 
 
 def make_data(torch, seed):
+    """Training data as numpy (the fit takes it with no device, so the
+    entry point's default puts it on the card), holdout on the card."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(-600.0, 600.0, (N_TRAIN + N_HOLD, DIM))
     y = griewank(x)
-    xt = torch.tensor(x, dtype=torch.float32, device=DEV)
-    yt = torch.tensor(y, dtype=torch.float32, device=DEV)
-    return xt[:N_TRAIN], yt[:N_TRAIN], xt[N_TRAIN:], yt[N_TRAIN:]
+    xh = torch.tensor(x[N_TRAIN:], dtype=torch.float32, device=DEV)
+    yh = torch.tensor(y[N_TRAIN:], dtype=torch.float32, device=DEV)
+    return x[:N_TRAIN], y[:N_TRAIN], xh, yh
 
 
 def slice_phase(torch, ck, chk):
@@ -207,6 +277,9 @@ def slice_phase(torch, ck, chk):
         t0 = time.perf_counter()
         model = gp.fit_gp(x, y, seed=seed, **FIT_KW)
         lkh = float(model.likelihood)  # host sync
+        if not (model.theta.is_cuda and model.theta.dtype == torch.float32):
+            raise RuntimeError(f"numpy input with no device ran on "
+                               f"{model.theta.device} in {model.theta.dtype}")
         return time.perf_counter() - t0, lkh, model, (x, y, xh, yh)
 
     # the main-path run whose launches are counted
@@ -230,7 +303,9 @@ def slice_phase(torch, ck, chk):
             raise RuntimeError(f"seed {seed}: likelihood {lkh}")
         # float64 plain recomputation at theta*: library Cholesky, plain Gram
         os.environ["EGOBOX_CHOL"] = "native"
-        x64, y64 = x.double(), y.double()[:, None]
+        x64 = torch.tensor(x, dtype=torch.float32, device=DEV).double()
+        y64 = torch.tensor(y, dtype=torch.float32,
+                           device=DEV).double()[:, None]
         xm, xs = x64.mean(0), x64.std(0)
         ym, ys = y64.mean(0), y64.std(0)
         lkh64, _ = reduced_likelihood(
@@ -277,9 +352,14 @@ def main():
     build.load_library()
     print(f"build: {time.perf_counter() - t0!r} s -> "
           f"{lib_path.relative_to(ROOT)}", flush=True)
+    # the compiler's resource report: registers and spills per kernel
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel"
+                          r"(?:ILi\d)?)", line)
+        if entry:
+            print(f"  ptxas: {entry.group(1)}")
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas:   {line.strip()}")
 
     k1 = k1_phase(torch, ck)
     k2 = k2_phase(torch, chk, lik)
@@ -289,14 +369,11 @@ def main():
         dict(name="corr_tile", route="cuda",
              source="egobox_torch/csrc/corr_tile.cu",
              replaces="egobox_tpu/ops/pallas_corr.py:73",
-             launches=launches["corr_tile"], max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
+             launches=launches["corr_tile"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",
-             launches=launches["factor_panel"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
-             plain_ms=k2["plain_ms"]),
+             launches=launches["factor_panel"], **k2),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,11 +40,27 @@ def default_dtype(device=None) -> torch.dtype:
     return torch.float64
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    GPU. Without one the default raises; it never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "egobox_torch runs on the GPU unless asked otherwise and this "
+            "host has no CUDA device: pass device='cpu' (or CPU tensors) to "
+            "run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     """A tensor stays where it is (cast to ``dtype`` when given); anything
-    else goes to ``device`` in ``dtype`` or the device's default type."""
+    else goes to ``resolve_device(device)`` in ``dtype`` or that device's
+    default type."""
     if isinstance(x, torch.Tensor):
         return x if dtype is None else x.to(dtype)
+    device = resolve_device(device)
     return torch.as_tensor(
         x, dtype=dtype or default_dtype(device), device=device
     )

@@ -9,7 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .config import default_dtype
+from .config import default_dtype, resolve_device
 from .gp.gp import GpModel
 
 _STATIC = ("corr", "trend")
@@ -19,8 +19,10 @@ def gp_model_from_numpy(fields: dict, corr: str, trend: str, device=None,
                         dtype=None) -> GpModel:
     """``fields`` maps every array field of ``GpModel`` to a numpy array
     (``w_star`` may be None, or ``np.asarray(None)``). Floating fields go to
-    ``device`` in ``dtype`` (default: the device's default type); ``mask``
-    stays boolean."""
+    ``device`` (default: the GPU; ``"cpu"`` to serve on the CPU) in
+    ``dtype`` (default: the device's default type); ``mask`` stays
+    boolean."""
+    device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     names = [f.name for f in dataclasses.fields(GpModel)
              if f.name not in _STATIC]

@@ -2,7 +2,8 @@
 of egobox_tpu/doe/lhs.py).
 
 Draws come from an explicit CPU ``torch.Generator`` and are moved to
-``device`` afterwards, so a seed gives the same design on every device.
+``device`` afterwards (default: the GPU; ``"cpu"`` for the CPU), so a seed
+gives the same design on every device.
 torch's streams never reproduce JAX's threefry bits: the designs have the
 same distribution as egobox_tpu's, not the same values.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import default_dtype
+from ..config import default_dtype, resolve_device
 from .utils import min_pdist_sq
 
 
@@ -26,6 +27,7 @@ def classic_lhs(ns: int, nx: int, generator: torch.Generator, dtype=None,
                 device=None) -> torch.Tensor:
     """One point uniformly inside each of ns strata, independently permuted
     per column (ref: lhs.rs:236-257)."""
+    device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     u = torch.rand((ns, nx), generator=generator, dtype=dtype)
     strata = (torch.arange(ns, dtype=dtype) / ns)[:, None]
@@ -37,6 +39,7 @@ def centered_lhs(ns: int, nx: int, generator: torch.Generator, dtype=None,
                  device=None) -> torch.Tensor:
     """Stratum centers, independently permuted per column
     (ref: lhs.rs:259-274)."""
+    device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     centers = (torch.arange(ns, dtype=dtype) + 0.5) / ns
     return centers[_column_perms(ns, nx, generator)].to(device)
@@ -48,6 +51,7 @@ def maximin_lhs(ns: int, nx: int, generator: torch.Generator,
     """Best of ``n_draws`` random LHS by min pairwise distance
     (ref: lhs.rs:276-297)."""
     build = centered_lhs if centered else classic_lhs
+    device = resolve_device(device)
     draws = [build(ns, nx, generator, dtype, device) for _ in range(n_draws)]
     scores = torch.stack([min_pdist_sq(d) for d in draws])
     return draws[int(torch.argmax(scores))]

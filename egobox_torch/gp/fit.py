@@ -291,8 +291,9 @@ def fit_gp(
     """User-facing fit (ref: GpParams + Fit, gp/src/algorithm.rs:785-980).
 
     ``x`` (n, nx), ``y`` (n,) or (n, 1); tensors keep their device and
-    type, numpy input goes to ``device`` in its default type (float64 on
-    the CPU, float32 on CUDA). ``theta_init``/``theta_bounds`` accept
+    type, numpy input goes to ``device`` (default: the GPU, and a host
+    without one raises; ``device="cpu"`` runs on the CPU) in its default
+    type (float64 on the CPU, float32 on CUDA). ``theta_init``/``theta_bounds`` accept
     scalars or per-dim arrays; dim = kpls_dim or nx.
 
     ``subsample_warmstart=m`` (with ``sub_draws``, ``polish_iters``,

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, at first use, and loaded with ctypes. The library lands in
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C
+interface, at first use, and loaded with ctypes. The library lands in
 ``build/egobox_torch/`` at the root of the checkout, named by a hash of the
 sources and flags, so a changed source is rebuilt and an unchanged one is
 loaded as it is. Nothing here runs at import: the package imports on hosts
@@ -22,7 +23,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "egobox_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -32,8 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # kind, x1, x2, thw, out, n1, n2, d, stream
     "egx_corr_tile": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # a, out, linv, m, b, stream
-    "egx_factor_panel": (_P, _P, _P, _I, _I, _P),
+    # a, out, m, b, stamps, stream
+    "egx_factor_panel": (_P, _P, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -68,18 +69,29 @@ def build(force: bool = False) -> Path:
         return lib_path
     # compile to a temporary name, then rename: concurrent builders never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in sources:
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = [proc.communicate()[0] for _, _, proc in jobs]
+        for (cmd, _, proc), out in zip(jobs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        tmp = Path(tmpdir) / lib_path.name
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        lib_path.with_suffix(".log").write_text("".join(log))
+        os.replace(tmp, lib_path)
     return lib_path
 
 

@@ -18,10 +18,11 @@ from . import build
 #: kernel launches since the last reset (the plain version does not count)
 launches = 0
 
-#: one CTA holds the packed lower triangle of the diagonal block and one
-#: column in shared memory: b(b+1)/2 + b floats within the 227 KB a Hopper
-#: CTA may use
+#: dynamic shared memory a Hopper CTA may use
 _SMEM_BYTES = 232_448
+#: the kernel's sub-panel width and rows of B per apply CTA
+_NB = 32
+_ROWS = 32
 PRECISIONS = ("highest", "high", "default")
 
 
@@ -44,12 +45,27 @@ def factor_panel_plain(a_panel: torch.Tensor) -> torch.Tensor:
     return torch.cat([l00, a_panel[b:] @ linv.T], dim=0)
 
 
-def factor_panel(a_panel: torch.Tensor) -> torch.Tensor:
+def smem_bytes(b: int) -> int:
+    """Shared memory the larger of the kernel's two CTAs needs at least for
+    a block of b columns: the diagonal CTA holds the packed lower triangle
+    (rounded up to 4 floats) and 32 reciprocal pivots (and, where they
+    fit, staging copies for the row solves and the trailing update); an
+    apply CTA holds its 32 rows and 32 rows of L00, each padded to a
+    multiple of 32 columns plus 4, and 32 reciprocal pivots."""
+    bp = -(-b // _NB) * _NB
+    diag = -(-(b * (b + 1) // 2) // 4) * 4 + _NB
+    return 4 * max(diag, (_ROWS + _NB) * (bp + 4) + _NB)
+
+
+def factor_panel(a_panel: torch.Tensor, stamps: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Factorize one block column: ``a_panel`` (m, b), m >= b, holds the
     symmetric diagonal block in its first b rows and the sub-diagonal rows
     below (already left-looking-updated). Returns [L00; B L00^-T] of the
     same shape. CUDA tensors (contiguous float32) launch the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version. ``stamps``, a CUDA int64 tensor of 6,
+    receives the diagonal kernel's clock64 phase split (cycles: load,
+    diagonal blocks, row solves, trailing updates, store, total)."""
     global launches
     if a_panel.ndim != 2 or a_panel.shape[0] < a_panel.shape[1]:
         raise ValueError(f"a_panel {tuple(a_panel.shape)}: expected (m, b) "
@@ -64,16 +80,20 @@ def factor_panel(a_panel: torch.Tensor) -> torch.Tensor:
     if not a_panel.is_contiguous():
         raise ValueError("factor_panel: a_panel must be contiguous")
     m, b = a_panel.shape
-    if (b * (b + 1) // 2 + b) * 4 > _SMEM_BYTES:
+    if smem_bytes(b) > _SMEM_BYTES:
         raise ValueError(f"factor_panel: block {b} too large for one CTA's "
-                         "shared memory (b <= 339)")
+                         "shared memory (b <= 340)")
+    if stamps is not None and not (stamps.is_cuda and stamps.numel() >= 6
+                                   and stamps.dtype == torch.int64):
+        raise ValueError("factor_panel: stamps must be a CUDA int64 tensor "
+                         "of at least 6")
     out = torch.empty_like(a_panel)
-    linv = torch.empty((b, b), dtype=torch.float32, device=a_panel.device)
     lib = build.load_library()
     with torch.cuda.device(a_panel.device):
         stream = torch.cuda.current_stream(a_panel.device).cuda_stream
-        err = lib.egx_factor_panel(a_panel.data_ptr(), out.data_ptr(),
-                                   linv.data_ptr(), m, b, stream)
+        err = lib.egx_factor_panel(
+            a_panel.data_ptr(), out.data_ptr(), m, b,
+            None if stamps is None else stamps.data_ptr(), stream)
     build.check(err, "factor_panel")
     launches += 1
     return out

@@ -61,17 +61,55 @@ def test_tile_wrapper_refuses_float64(dev):
                                                         device=dev))
 
 
-@pytest.mark.parametrize("m,b", [(1024, 256), (700, 128), (65, 65),
-                                 (300, 200), (400, 339)])
-def test_panel_kernel_matches_plain(dev, m, b):
-    r = torch.tensor(_spd(m, m), dtype=torch.float32, device=dev)
-    panel = r[:, :b].contiguous()
+def _panel(m, b, seed, dev):
+    """[A00; B]: a well-conditioned SPD diagonal block over random rows."""
+    rng = np.random.default_rng(seed)
+    rows = rng.standard_normal((m - b, b)) / np.sqrt(b)
+    panel = np.concatenate([_spd(b, seed), rows])
+    return torch.tensor(panel, dtype=torch.float32, device=dev)
+
+
+# b: one sub-panel of 32 columns, ragged widths, the main path's 256 and the
+# widest accepted; m: the diagonal block alone, one row below, and the
+# driver's tall panels
+@pytest.mark.parametrize("b", [32, 65, 128, 200, 256, 339])
+@pytest.mark.parametrize("m_kind", ["b", "b+1", "1024", "10240"])
+def test_panel_kernel_matches_plain(dev, m_kind, b):
+    m = {"b": b, "b+1": b + 1}.get(m_kind) or int(m_kind)
+    panel = _panel(m, b, m + b, dev)
     before = chk.launches
     got = chk.factor_panel(panel)
     torch.cuda.synchronize()
     assert chk.launches == before + 1
     torch.testing.assert_close(got, chk.factor_panel_plain(panel), rtol=0,
                                atol=5e-5)
+
+
+# a non-positive pivot at the first, a middle and the last column of a
+# 32-column sub-panel, in a full and in a ragged last sub-panel
+@pytest.mark.parametrize("b,col", [(256, 0), (256, 64), (256, 79),
+                                   (256, 95), (256, 255), (200, 192),
+                                   (200, 199)])
+def test_panel_kernel_nan_on_non_positive_pivot(dev, b, col):
+    panel = _panel(b + 100, b, col, dev)
+    panel[col, col] = -1.0
+    got = chk.factor_panel(panel)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[col:, col]).all())
+    assert bool(torch.isfinite(got[:col, :col]).all())
+    if col:
+        torch.testing.assert_close(
+            got[:col, :col], chk.factor_panel_plain(panel[:col, :col]),
+            rtol=0, atol=5e-5)
+
+
+def test_panel_kernel_stamps(dev):
+    """The clock64 phase split: load, diagonal blocks, row solves,
+    trailing updates and store sum to at most the total."""
+    stamps = torch.zeros(6, dtype=torch.int64, device=dev)
+    chk.factor_panel(_panel(1024, 256, 3, dev), stamps)
+    t = stamps.tolist()
+    assert all(v > 0 for v in t) and sum(t[:5]) <= t[5]
 
 
 def test_panel_kernel_nan_on_non_pd(dev):

@@ -63,7 +63,7 @@ def test_multi_fidelity_recipe_matches_jax(monkeypatch):
               subsample_warmstart=100, sub_draws=2, polish_iters=1,
               polish_tr=True, seed=5)
     _inject_jax_draws(monkeypatch, 5, 300, 2, 1, 3)
-    mt = tgp.fit_gp(x, y, **kw)
+    mt = tgp.fit_gp(x, y, device="cpu", **kw)
     mj = jgp.fit_gp(x, y, **kw)
     _assert_same_model(mt, mj, x_test)
 
@@ -81,12 +81,12 @@ def test_polish_matches_jax(polish_tr, monkeypatch):
     kw = dict(n_start=1, max_iters=6, nugget=1e-6, subsample_warmstart=200,
               polish_iters=3, seed=2)
     _inject_jax_draws(monkeypatch, 2, 600, 1, 1, 4)
-    mt = tgp.fit_gp(x, y, polish_tr=polish_tr, **kw)
+    mt = tgp.fit_gp(x, y, polish_tr=polish_tr, device="cpu", **kw)
     mj = jgp.fit_gp(x, y, polish_tr=polish_tr, **kw)
     _assert_same_model(mt, mj, x_test)
     if polish_tr:
         _inject_jax_draws(monkeypatch, 2, 600, 1, 1, 4)
-        lk_ls = float(tgp.fit_gp(x, y, **kw).likelihood)
+        lk_ls = float(tgp.fit_gp(x, y, device="cpu", **kw).likelihood)
         lk_tr = float(mt.likelihood)
         assert lk_tr >= lk_ls - 0.005 * abs(lk_ls), (lk_ls, lk_tr)
 
@@ -104,7 +104,7 @@ def test_multistart_kpls_masked_matches_jax(monkeypatch):
                         lambda s: _JaxDraws([], [seeds]))
     kw = dict(corr="matern32", trend="linear", kpls_dim=2, n_start=3,
               max_iters=15, seed=9, mask=mask, nugget=1e-6)
-    mt = tgp.fit_gp(xp, yp, **kw)
+    mt = tgp.fit_gp(xp, yp, device="cpu", **kw)
     mj = jgp.fit_gp(xp, yp, **kw)
     x_test = np.random.default_rng(5).uniform(-2.0, 2.0, (10, 4))
     _assert_same_model(mt, mj, x_test)

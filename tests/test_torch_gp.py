@@ -23,6 +23,7 @@ import torch
 from egobox_tpu import gp as jgp
 from egobox_torch import gp as tgp
 from egobox_torch.convert import gp_model_from_numpy
+from egobox_torch.doe import lhs as tlhs
 
 torch.set_num_threads(2)
 
@@ -58,7 +59,7 @@ def _assert_same_model(mt, mj, x_test):
 def test_fit_predict_matches_jax(corr):
     x, y = _data(200, 3, 0)
     x_test = np.random.default_rng(1).uniform(-2.0, 2.0, (25, 3))
-    mt = tgp.fit_gp(x, y, corr=corr, n_start=0, nugget=1e-6)
+    mt = tgp.fit_gp(x, y, corr=corr, n_start=0, nugget=1e-6, device="cpu")
     mj = jgp.fit_gp(x, y, corr=corr, n_start=0, nugget=1e-6)
     assert mt.theta.dtype == torch.float64
     _assert_same_model(mt, mj, x_test)
@@ -68,7 +69,8 @@ def test_fixed_theta_and_partial_tuning_match_jax():
     x, y = _data(50, 3, 6)
     for kw in (dict(theta_init=[0.5, 0.7, 0.9], theta_fixed=True),
                dict(theta_init=0.3, active=[0, 2], n_start=0)):
-        mt = tgp.fit_gp(x, y, corr="absolute_exponential", **kw)
+        mt = tgp.fit_gp(x, y, corr="absolute_exponential", device="cpu",
+                        **kw)
         mj = jgp.fit_gp(x, y, corr="absolute_exponential", **kw)
         _assert_same_model(mt, mj, x[:7] + 0.01)
     assert float(mt.theta[1]) == pytest.approx(0.3, rel=1e-12)
@@ -78,7 +80,7 @@ def test_fixed_theta_and_partial_tuning_match_jax():
 def kriging_1d():
     xt = np.array([[0.0], [1.0], [2.0], [3.0], [4.0]])
     yt = np.array([0.0, 1.0, 1.5, 0.9, 1.0])
-    return tgp.fit_gp(xt, yt), xt, yt
+    return tgp.fit_gp(xt, yt, device="cpu"), xt, yt
 
 
 def test_kriging_interpolation(kriging_1d):
@@ -106,7 +108,7 @@ def test_jax_fitted_model_served_by_port(kpls):
     fields = {k: (None if getattr(mj, k) is None
                   else np.asarray(getattr(mj, k)))
               for k in mj.__dataclass_fields__ if k not in ("corr", "trend")}
-    mt = gp_model_from_numpy(fields, mj.corr, mj.trend)
+    mt = gp_model_from_numpy(fields, mj.corr, mj.trend, device="cpu")
     assert (mt.w_star is None) == (not kpls)
     x_test = np.random.default_rng(8).uniform(-2.0, 2.0, (30, 4))
     mean, var = tgp.predict_valvar(mt, torch.from_numpy(x_test))
@@ -120,14 +122,15 @@ def test_jax_fitted_model_served_by_port(kpls):
 
 def test_gp_model_from_numpy_rejects_missing_fields():
     with pytest.raises(ValueError, match="missing"):
-        gp_model_from_numpy({"theta": np.ones(2)}, "matern52", "constant")
+        gp_model_from_numpy({"theta": np.ones(2)}, "matern52", "constant",
+                            device="cpu")
 
 
 def test_nonfinite_likelihood_raises_gp_fit_error():
     x, y = _data(20, 2, 8)
     y[3] = np.nan
     with pytest.raises(tgp.GpFitError):
-        tgp.fit_gp(x, y, n_start=0, max_iters=2)
+        tgp.fit_gp(x, y, n_start=0, max_iters=2, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
@@ -137,15 +140,33 @@ def test_nonfinite_likelihood_raises_gp_fit_error():
 def test_unported_options_raise(kw):
     x, y = _data(20, 2, 9)
     with pytest.raises(NotImplementedError):
-        tgp.fit_gp(x, y, **kw)
+        tgp.fit_gp(x, y, device="cpu", **kw)
 
 
 def test_input_validation():
     x, y = _data(20, 2, 9)
     with pytest.raises(ValueError, match="multi-output"):
-        tgp.fit_gp(x, np.stack([y, y], axis=1))
+        tgp.fit_gp(x, np.stack([y, y], axis=1), device="cpu")
     with pytest.raises(ValueError, match="kpls_dim"):
-        tgp.fit_gp(x, y, kpls_dim=3)
+        tgp.fit_gp(x, y, kpls_dim=3, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """Numpy input with no ``device`` goes to the GPU; on a host without
+    one the entry points raise instead of running on the CPU. Tensors keep
+    their device."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default runs there")
+    x, y = _data(20, 2, 9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgp.fit_gp(x, y)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gp_model_from_numpy({"theta": np.ones(2)}, "matern52", "constant")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlhs.maximin_lhs(4, 2, torch.Generator().manual_seed(0))
+    m = tgp.fit_gp(torch.from_numpy(x), torch.from_numpy(y), n_start=0,
+                   max_iters=2)
+    assert m.theta.device.type == "cpu"
 
 
 def test_import_leaves_jax_out():

@@ -149,15 +149,15 @@ def test_lhs_latin_structure(centered):
     property is checked, not the values)."""
     ns, nx = 16, 3
     build = tlhs.centered_lhs if centered else tlhs.classic_lhs
-    x = build(ns, nx, torch.Generator().manual_seed(0))
+    x = build(ns, nx, torch.Generator().manual_seed(0), device="cpu")
     assert x.dtype == torch.float64 and x.shape == (ns, nx)
     for k in range(nx):
         strata = torch.sort(torch.floor(x[:, k] * ns)).values
         assert torch.equal(strata, torch.arange(ns, dtype=x.dtype))
     best = tlhs.maximin_lhs(ns, nx, torch.Generator().manual_seed(1),
-                            centered, n_draws=4)
+                            centered, n_draws=4, device="cpu")
     gen = torch.Generator().manual_seed(1)
-    draws = [build(ns, nx, gen) for _ in range(4)]
+    draws = [build(ns, nx, gen, device="cpu") for _ in range(4)]
     assert float(tdu.min_pdist_sq(best)) == max(
         float(tdu.min_pdist_sq(d)) for d in draws)
     lim = torch.tensor([[-1.0, 1.0], [0.0, 10.0], [5.0, 6.0]],
