@@ -7,7 +7,10 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles the CUDA kernels from ``egobox_torch/csrc``;
-3. K1 (Gram tile) against ``corr_cross_plain`` on the card, float32;
+3. K1 (Gram tile) against ``corr_cross_plain`` on the card, float32:
+   general and symmetric launches, ragged shapes, d from 1 to 100, large
+   theta, identical points, and the row sums it returns; times it at the
+   fit's three shapes (10000^2, 2000^2, 2000x10000);
 4. K2 (Cholesky panel) against ``factor_panel_plain`` on the card at every
    block width the tests use (ragged ones included) and m in {b, b+1,
    1024, 10240}, and the K2-driven Cholesky against float64
@@ -117,48 +120,145 @@ def griewank(x):
     return s - p + 1.0
 
 
+def _k1_check(torch, what, got, ref):
+    """K1 output against the plain version: shape, finite, atol."""
+    if got.shape != ref.shape:
+        raise RuntimeError(f"K1 {what}: shape {tuple(got.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"K1 {what}: NaN or inf")
+    err = float(torch.max(torch.abs(got - ref)))
+    if not err <= K1_ATOL:
+        raise RuntimeError(f"K1 {what}: max abs err {err:.3g} > {K1_ATOL}")
+    return err
+
+
 def k1_phase(torch, ck):
-    """K1 against its plain version: 3 L1 kernels at 2000^2 and 10000^2
-    (d=10) and the unaligned 37x41 (d=3)."""
+    """K1 against its plain version. General launches: the L1 kernels and
+    sqexp at 2000^2, 10000^2, the predict's 2000x10000 (d=10), the ragged
+    37x41 (d=3) and 1000x1003, and d in {1, 3, 10, 33, 64, 100}. Symmetric
+    launches (one tensor on both sides): bitwise symmetry, unit diagonal,
+    agreement with the general launch, row sums (against the plain sums,
+    and the same bits twice). Large theta (r underflows: exact zeros, no
+    NaN) and identical points (r = 1 everywhere). Then the times at the
+    three shapes of the fit."""
     rng = np.random.default_rng(1)
     dev = DEV
-    worst = 0.0
-    cases = [(n, n, 10) for n in (2000, 10_000)] + [(37, 41, 3)]
+    names = ("absolute_exponential", "matern32", "matern52",
+             "squared_exponential")
+    worst, n_cases = 0.0, 0
+
+    def rand(n, d, scale=1.0):
+        return torch.tensor(scale * rng.standard_normal((n, d)),
+                            dtype=torch.float32, device=dev)
+
+    def theta(d, lo=0.1, hi=1.5):
+        return torch.tensor(rng.uniform(lo, hi, d), dtype=torch.float32,
+                            device=dev)
+
+    cases = [(2000, 2000, 10), (10_000, 10_000, 10), (2000, 10_000, 10),
+             (37, 41, 3), (1000, 1003, 10)]
+    cases += [(129, 70, d) for d in (1, 3, 10, 33, 64, 100)]
     for n1, n2, d in cases:
-        x1 = torch.tensor(rng.standard_normal((n1, d)), dtype=torch.float32,
-                          device=dev)
-        x2 = torch.tensor(rng.standard_normal((n2, d)), dtype=torch.float32,
-                          device=dev)
-        th = torch.tensor(rng.uniform(0.1, 1.5, d), dtype=torch.float32,
-                          device=dev)
-        for name in ("absolute_exponential", "matern32", "matern52"):
+        x1, x2 = rand(n1, d), rand(n2, d)
+        th = theta(d, hi=1.5 if d <= 10 else 0.6)
+        for name in names:
             got = ck.corr_cross_tile(name, x1, x2, th)
             ref = ck.corr_cross_plain(name, x1, x2, th)
-            torch.cuda.synchronize()
-            if got.shape != (n1, n2):
-                raise RuntimeError(f"K1 shape {tuple(got.shape)}")
-            err = float(torch.max(torch.abs(got - ref)))
-            if not err <= K1_ATOL:
-                raise RuntimeError(f"K1 {name} {n1}x{n2}x{d}: max abs err "
-                                   f"{err:.3g} > {K1_ATOL}")
-            worst = max(worst, err)
-    # timing at the slice's full-data Gram: matern52, 10000^2, d=10
-    x = torch.tensor(rng.standard_normal((N_TRAIN, DIM)), dtype=torch.float32,
-                     device=dev)
+            worst = max(worst, _k1_check(torch, f"{name} {n1}x{n2}x{d}",
+                                         got, ref))
+            n_cases += 1
+        del got, ref
+
+    # one tensor on both sides: the symmetric launch, with the row sums
+    worst_sum = 0.0
+    for n in (37, 1003, 2000, 10_000):
+        x, th = rand(n, 10), theta(10, hi=0.6)
+        for name in names:
+            got, sums = ck.corr_cross_tile(name, x, x, th, row_sums=True)
+            ref = ck.corr_cross_plain(name, x, x, th)
+            what = f"{name} symmetric {n}"
+            worst = max(worst, _k1_check(torch, what, got, ref))
+            if not (torch.equal(got, got.T)
+                    and bool((got.diagonal() == 1.0).all())):
+                raise RuntimeError(f"K1 {what}: not bitwise symmetric with "
+                                   "a unit diagonal")
+            general = ck.corr_cross_tile(name, x, x.clone(), th)
+            worst = max(worst, _k1_check(torch, what + " two tensors",
+                                         general, got))
+            ref.diagonal().fill_(1.0)
+            ref_sums = torch.sum(torch.abs(ref), dim=1)
+            rel = float(torch.max(torch.abs(sums - ref_sums) / ref_sums))
+            if not rel <= 1e-5:
+                raise RuntimeError(f"K1 {what}: row sums off by {rel:.3g} "
+                                   "relative > 1e-5")
+            worst_sum = max(worst_sum, rel)
+            again, sums2 = ck.corr_cross_tile(name, x, x, th, row_sums=True)
+            if not (torch.equal(sums, sums2) and torch.equal(got, again)):
+                raise RuntimeError(f"K1 {what}: two runs differ")
+            n_cases += 1
+        del got, ref, general, again
+
+    # theta = 50, d = 64: r underflows except between near neighbours
+    x1 = rand(300, 64)
+    x2 = torch.cat([x1[:100] + rand(100, 64, 1e-4), x1[100:150],
+                    rand(53, 64, 5.0)])
+    th = torch.full((64,), 50.0, dtype=torch.float32, device=dev)
+    for name in names[:3]:
+        for a, b in ((x1, x2), (x1, x1)):
+            got = ck.corr_cross_tile(name, a, b, th)
+            ref = ck.corr_cross_plain(name, a, b, th)
+            worst = max(worst, _k1_check(torch, f"{name} theta=50", got,
+                                         ref))
+            if not bool((got[ref == 0] == 0).all()):
+                raise RuntimeError(f"K1 {name} theta=50: nonzero where the "
+                                   "plain version is 0")
+            n_cases += 1
+    # identical points: r = 1 off the diagonal too
+    x = rand(1, 33).repeat(150, 1).contiguous()
+    th = torch.full((33,), 0.7, dtype=torch.float32, device=dev)
+    for name in names:
+        for b in (x, x.clone()):
+            got = ck.corr_cross_tile(name, x, b, th)
+            worst = max(worst, _k1_check(torch, f"{name} equal points",
+                                         got, torch.ones_like(got)))
+            n_cases += 1
+
+    # timing at the slice's shapes: matern52, d=10; R(x, x) at 10000^2 and
+    # 2000^2 (one tensor: the symmetric launch), the predict's 2000x10000
+    x = rand(N_TRAIN, DIM)
+    xs, xh = rand(2000, DIM), rand(N_HOLD, DIM)
     th = torch.full((DIM,), 0.5, dtype=torch.float32, device=dev)
     ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", x, x, th))
+    sums_ms = time_ms(torch, lambda: ck.corr_cross_tile(
+        "matern52", x, x, th, row_sums=True))
+    sub_ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", xs, xs,
+                                                       th))
+    pred_ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", xh, x,
+                                                        th))
     plain_ms = time_ms(torch, lambda: ck.corr_cross_plain("matern52", x, x,
                                                           th))
+
     # matern52 per output: per feature sub, scale, sqrt5 u, 5/3 u^2 (2),
     # add, log1p, subtract (8 counting log1p as one); one exp per output
-    bound_ms, bound_by = bound(4 * (2 * N_TRAIN * DIM + DIM + N_TRAIN**2),
-                               N_TRAIN**2 * (8 * DIM + 1))
-    print(f"K1 corr_tile: {3 * len(cases)} cases, max abs err {worst!r} "
-          f"(atol {K1_ATOL}); matern52 10000x10000 d=10: kernel {ms!r} ms, "
-          f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by})",
-          flush=True)
+    def k1_bound(n1, n2):
+        return bound(4 * ((n1 + n2) * DIM + DIM + n1 * n2),
+                     n1 * n2 * (8 * DIM + 1))
+
+    bound_ms, bound_by = k1_bound(N_TRAIN, N_TRAIN)
+    sub_bound_ms, _ = k1_bound(2000, 2000)
+    pred_bound_ms, _ = k1_bound(N_HOLD, N_TRAIN)
+    print(f"K1 corr_tile: {n_cases} cases, max abs err {worst!r} (atol "
+          f"{K1_ATOL}), row sums max rel err {worst_sum!r} (rtol 1e-5, "
+          f"bitwise repeatable); matern52 d=10: 10000x10000 kernel {ms!r} "
+          f"ms (with row sums {sums_ms!r} ms), plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}); 2000x2000 kernel {sub_ms!r} ms, "
+          f"bound {sub_bound_ms!r} ms; 2000x10000 kernel {pred_ms!r} ms, "
+          f"bound {pred_bound_ms!r} ms", flush=True)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                row_sums_ms=sums_ms, row_sums_max_rel_err=worst_sum,
+                ms_2000x2000=sub_ms, bound_ms_2000x2000=sub_bound_ms,
+                ms_2000x10000=pred_ms, bound_ms_2000x10000=pred_bound_ms)
 
 
 def _spd(torch, n, seed):
@@ -284,9 +384,16 @@ def slice_phase(torch, ck, chk):
 
     # the main-path run whose launches are counted
     ck.launches = 0
+    ck.launch_shapes.clear()
     chk.launches = 0
-    _, lkh0, _, _ = fit(0)
+    _, lkh0, model0, (_, _, xh0, _) = fit(0)
+    gp.predict_valvar(model0, xh0)
+    del model0
     launches = {"corr_tile": ck.launches, "factor_panel": chk.launches}
+    by_shape = {f"{n1}x{n2}": c
+                for (n1, n2), c in sorted(ck.launch_shapes.items())}
+    print(f"slice: K1 launches of the counted fit and predict by shape: "
+          f"{by_shape}", flush=True)
     if not np.isfinite(lkh0):
         raise RuntimeError(f"warm-up fit likelihood {lkh0}")
     if min(launches.values()) <= 0:
@@ -338,7 +445,7 @@ def slice_phase(torch, ck, chk):
           f"{statistics.median(times)!r} s over seeds 1-3, Q2 min "
           f"{min(q2s)!r}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB", flush=True)
-    return launches
+    return launches, by_shape
 
 
 def main():
@@ -363,13 +470,14 @@ def main():
 
     k1 = k1_phase(torch, ck)
     k2 = k2_phase(torch, chk, lik)
-    launches = slice_phase(torch, ck, chk)
+    launches, k1_by_shape = slice_phase(torch, ck, chk)
 
     kernels = [
         dict(name="corr_tile", route="cuda",
              source="egobox_torch/csrc/corr_tile.cu",
              replaces="egobox_tpu/ops/pallas_corr.py:73",
-             launches=launches["corr_tile"], **k1),
+             launches=launches["corr_tile"],
+             launches_by_shape=k1_by_shape, **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",

@@ -122,6 +122,18 @@ def log_corr_cross(name: str, x1, x2, theta, weights=None):
     return _row_blocks(block, x1, x2, x1.shape[1])
 
 
+def _takes_k1(name: str, x1, x2, weights) -> bool:
+    """The K1 dispatch rule: large float32 L1-family Grams on CUDA with
+    identity weights."""
+    return (
+        name != "squared_exponential"
+        and weights is None
+        and x1.dtype == torch.float32
+        and x1.shape[0] * x2.shape[0] * x1.shape[1] > _DENSE_BUDGET
+        and x1.is_cuda
+    )
+
+
 def corr_cross(name: str, x1, x2, theta, weights=None):
     """Cross-correlation (Gram) matrix r(x1, x2) of shape (n1, n2).
 
@@ -130,18 +142,26 @@ def corr_cross(name: str, x1, x2, theta, weights=None):
     """
     if name == "squared_exponential":
         return _sqexp_cross_fast(x1, x2, theta, weights)
-    n1, nx = x1.shape
-    n2 = x2.shape[0]
-    if (
-        weights is None
-        and x1.dtype == torch.float32
-        and n1 * n2 * nx > _DENSE_BUDGET
-        and x1.is_cuda
-    ):
+    if _takes_k1(name, x1, x2, weights):
         return corr_kernel.corr_cross_tile(
             name, x1.contiguous(), x2.contiguous(), theta.contiguous()
         )
     return torch.exp(log_corr_cross(name, x1, x2, theta, weights))
+
+
+def corr_gram_row_sums(name: str, x, theta, weights=None):
+    """R(x, x) with an exact unit diagonal and its row sums
+    ``sum_j |R[i, j]|``. Where K1 builds the Gram the sums come from the
+    kernel, which saves two more passes over R; elsewhere they are summed
+    from R."""
+    if _takes_k1(name, x, x, weights):
+        xc = x.contiguous()
+        # K1's diagonal is exactly 1: every term of r(x_i, x_i) is 0
+        return corr_kernel.corr_cross_tile(name, xc, xc, theta.contiguous(),
+                                           row_sums=True)
+    r = corr_cross(name, x, x, theta, weights)
+    r.diagonal().fill_(1.0)  # in place: r is a fresh tensor
+    return r, torch.sum(torch.abs(r), dim=1)
 
 
 def corr_gram(name: str, x, theta, weights=None, nugget=0.0):

@@ -19,7 +19,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.chol_kernel import PRECISIONS, cholesky_nan, panel_cholesky
-from .kernels import _SQRT3, _SQRT5, _DENSE_BUDGET, _theta_w, corr_cross
+from .kernels import (_SQRT3, _SQRT5, _DENSE_BUDGET, _theta_w, corr_cross,
+                      corr_gram_row_sums)
 from .trends import trend_basis
 
 _LN10 = 2.302585092994046
@@ -78,14 +79,17 @@ def _build_r(corr, x_norm, theta, w_star, nugget, mask):
     (not differentiated): it keeps chol(R) well-posed for any theta while
     leaving well-conditioned fits (row sums ~ 1) untouched. With a mask the
     padded block is the identity. The diagonal is written in place on the
-    fresh Gram tensor."""
-    r = corr_cross(corr, x_norm, x_norm, theta, w_star)
-    r.diagonal().fill_(1.0)  # exact unit diagonal
-    if mask is not None:
+    fresh Gram tensor. Without a mask the row sums come with the Gram
+    (from the K1 kernel where it builds it)."""
+    if mask is None:
+        r, sums = corr_gram_row_sums(corr, x_norm, theta, w_star)
+    else:
+        r = corr_cross(corr, x_norm, x_norm, theta, w_star)
         m = mask.to(r.dtype)
         r.mul_(m[:, None] * m[None, :])
-        r.diagonal().fill_(1.0)
-    row_max = torch.max(torch.sum(torch.abs(r), dim=1)).detach()
+        r.diagonal().fill_(1.0)  # exact unit diagonal
+        sums = torch.sum(torch.abs(r), dim=1)
+    row_max = torch.max(sums).detach()
     r.diagonal().add_(nugget * torch.clamp(row_max, min=1.0))
     return r
 

@@ -31,8 +31,8 @@ _I = ctypes.c_int
 #: C signature of each kernel entry point: (argtypes); every one returns a
 #: cudaError_t as int
 _SIGNATURES = {
-    # kind, x1, x2, thw, out, n1, n2, d, stream
-    "egx_corr_tile": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # kind, x1, x2, thw, out, sums, n1, n2, d, symmetric, stream
+    "egx_corr_tile": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # a, out, m, b, stamps, stream
     "egx_factor_panel": (_P, _P, _I, _I, _P, _P),
 }

@@ -1,12 +1,20 @@
 """K1: the fused correlation (Gram) tile kernel for the L1-family kernels.
 
 Replaces egobox_tpu/ops/pallas_corr.py (``corr_cross_pallas``). The CUDA
-source is ``egobox_torch/csrc/corr_tile.cu``; its header says what bounds it
-on the H100 and how the design answers that. ``corr_cross_tile`` launches
-it on CUDA tensors and takes ``corr_cross_plain`` only for CPU tensors.
+source is ``egobox_torch/csrc/corr_tile.cu``: it is bound by FP32
+instruction issue and then by its stores, so it works in product form (no
+log1p per term, one exp per 8 features), keeps 8x4 outputs per thread in
+registers, stores 16-byte vectors, computes a symmetric Gram's lower tiles
+only (each stored with its transpose, the result symmetric bit for bit) and
+can return the Gram's row sums from the registers it stores. The kernel's
+header has the reasoning. ``corr_cross_tile`` launches it on CUDA tensors
+and takes ``corr_cross_plain``, which keeps the log-space formula of the
+JAX package, only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -24,8 +32,14 @@ _KIND = {
 #: broadcast tensor to about 8e6 elements
 _PLAIN_BUDGET = 8_000_000
 
+#: edge of the kernel's output tile: the row sums come back as one partial
+#: per row and tile of this many columns
+_TILE = 64
+
 #: kernel launches since the last reset (the plain version does not count)
 launches = 0
+#: the same launches by output shape (n1, n2)
+launch_shapes: collections.Counter = collections.Counter()
 
 
 def _log_terms(name: str, u: torch.Tensor) -> torch.Tensor:
@@ -44,25 +58,30 @@ def _log_terms(name: str, u: torch.Tensor) -> torch.Tensor:
 
 
 def corr_cross_plain(name: str, x1: torch.Tensor, x2: torch.Tensor,
-                     theta_w: torch.Tensor) -> torch.Tensor:
+                     theta_w: torch.Tensor, row_sums: bool = False):
     """Plain PyTorch version of the kernel: r(x1, x2) (n1, n2) with the
-    per-feature length scales ``theta_w`` (d,), in row blocks."""
+    per-feature length scales ``theta_w`` (d,), in row blocks. With
+    ``row_sums`` it returns ``(r, sum_j |r[i, j]|)``."""
     n1, d = x1.shape
     rows = max(1, _PLAIN_BUDGET // max(1, x2.shape[0] * d))
     out = []
     for s in range(0, n1, rows):
         u = torch.abs(x1[s:s + rows, None, :] - x2[None, :, :]) * theta_w
         out.append(torch.exp(_log_terms(name, u)))
-    if not out:
-        return x1.new_empty((0, x2.shape[0]))
-    return torch.cat(out, dim=0)
+    r = torch.cat(out, dim=0) if out else x1.new_empty((0, x2.shape[0]))
+    if row_sums:
+        return r, torch.sum(torch.abs(r), dim=1)
+    return r
 
 
 def corr_cross_tile(name: str, x1: torch.Tensor, x2: torch.Tensor,
-                    theta_w: torch.Tensor) -> torch.Tensor:
+                    theta_w: torch.Tensor, row_sums: bool = False):
     """r(x1, x2) of shape (n1, n2) for identity KPLS weights: the CUDA
     kernel on CUDA tensors (contiguous float32 only), the plain version on
-    CPU tensors."""
+    CPU tensors. With ``row_sums`` it returns ``(r, sum_j |r[i, j]|)``, the
+    sums reduced in a fixed order (the same bits on every call). When ``x1``
+    and ``x2`` are the same tensor the kernel computes the lower tiles only
+    and r is symmetric bit for bit, its diagonal exactly 1."""
     global launches
     if name not in _KIND:
         raise ValueError(f"unknown kernel: {name}")
@@ -74,7 +93,7 @@ def corr_cross_tile(name: str, x1: torch.Tensor, x2: torch.Tensor,
                          f"({x1.shape[1]},)")
     tensors = (x1, x2, theta_w)
     if all(t.device.type == "cpu" for t in tensors):
-        return corr_cross_plain(name, x1, x2, theta_w)
+        return corr_cross_plain(name, x1, x2, theta_w, row_sums)
     if not all(t.is_cuda and t.device == x1.device for t in tensors):
         raise ValueError("corr_cross_tile: x1, x2, theta_w must share one "
                          "CUDA device (or all lie on the CPU)")
@@ -86,13 +105,22 @@ def corr_cross_tile(name: str, x1: torch.Tensor, x2: torch.Tensor,
     n1, d = x1.shape
     n2 = x2.shape[0]
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
+    partial = None
+    if row_sums:
+        partial = torch.empty((n1, -(-n2 // _TILE)), dtype=torch.float32,
+                              device=x1.device)
+    symmetric = x1.data_ptr() == x2.data_ptr() and n1 == n2
     lib = build.load_library()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
         err = lib.egx_corr_tile(
             _KIND[name], x1.data_ptr(), x2.data_ptr(), theta_w.data_ptr(),
-            out.data_ptr(), n1, n2, d, stream,
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            n1, n2, d, int(symmetric), stream,
         )
     build.check(err, "corr_tile")
     launches += 1
+    launch_shapes[(n1, n2)] += 1
+    if row_sums:
+        return out, torch.sum(partial, dim=1)
     return out

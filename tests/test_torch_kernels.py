@@ -16,6 +16,7 @@ from jax.experimental import pallas as pl
 
 from egobox_tpu.gp import kernels as jk
 from egobox_tpu.gp import kpls as jkpls
+from egobox_tpu.gp import likelihood as jlk
 from egobox_tpu.gp import trends as jtr
 from egobox_tpu.doe import utils as jdu
 from egobox_tpu.ops import pallas_corr as pc
@@ -192,6 +193,50 @@ def test_corr_cross_plain_matches_pallas_interpret(name, n1, n2, d):
     assert got.dtype == torch.float32 and got.shape == (n1, n2)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=2e-6)
+
+
+@pytest.mark.usefixtures("_interpret_pallas")
+@pytest.mark.parametrize("name", L1_KERNELS)
+def test_corr_cross_plain_large_theta_matches_pallas_interpret(name):
+    """theta = 50, d = 64: r underflows to 0 except between near
+    neighbours. The plain version and the Pallas kernel agree at 2e-6 with
+    no NaN; the CUDA kernel is held to the plain version on these inputs
+    (tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(12)
+    x1 = rng.standard_normal((60, 64))
+    x2 = np.concatenate([x1[:20] + 1e-4 * rng.standard_normal((20, 64)),
+                         x1[20:30], 5.0 * rng.standard_normal((11, 64))])
+    x1, x2 = x1.astype(np.float32), x2.astype(np.float32)
+    theta = np.full(64, 50.0, np.float32)
+    got = ck.corr_cross_plain(name, _t(x1), _t(x2), _t(theta)).numpy()
+    ref = np.asarray(pc.corr_cross_pallas(name, jnp.asarray(x1),
+                                          jnp.asarray(x2),
+                                          jnp.asarray(theta)))
+    assert np.isfinite(got).all() and np.isfinite(ref).all()
+    assert (got == 0).sum() > got.size // 2 and got.max() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_corr_cross_plain_row_sums_match_jax_build_r(name):
+    """The plain version's optional row sums: their maximum is the
+    Gershgorin row sum that egobox_tpu's _build_r scales the nugget by
+    (float64, rtol 1e-12), and the wrapper hands them through on the CPU."""
+    x, _, theta, _ = _inputs(False, seed=11, n1=45, nx=4)
+    r, sums = ck.corr_cross_plain(name, _t(x), _t(x), _t(theta),
+                                  row_sums=True)
+    np.testing.assert_allclose(sums.numpy(), np.abs(r.numpy()).sum(1),
+                               rtol=1e-14)
+    assert bool((r.diagonal() == 1.0).all())
+    nugget = 1e-3
+    r_jax = np.asarray(jlk._build_r(name, jnp.asarray(x), jnp.asarray(theta),
+                                    None, nugget, None))
+    row_max_jax = (r_jax[0, 0] - 1.0) / nugget
+    np.testing.assert_allclose(max(float(sums.max()), 1.0), row_max_jax,
+                               rtol=1e-12)
+    r2, sums2 = ck.corr_cross_tile(name, _t(x), _t(x), _t(theta),
+                                   row_sums=True)
+    assert torch.equal(r, r2) and torch.equal(sums, sums2)
 
 
 def test_tile_wrapper_takes_plain_version_on_cpu(monkeypatch):

@@ -93,6 +93,23 @@ def test_value_inner_and_gradient_match_jax(corr, kpls):
                                atol=1e-7 * np.max(np.abs(g_j)))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("corr", KERNELS)
+def test_build_r_matches_jax(corr, masked):
+    """R with its unit diagonal and Gershgorin-scaled nugget, with and
+    without a mask, against egobox_tpu's _build_r (float64, 1e-12). The
+    nugget is large enough for the row-sum maximum to show in the
+    diagonal."""
+    xn, _, _, theta, _ = _problem(n=50, seed=6)
+    mask = np.arange(50) < 41 if masked else None
+    got = tlk._build_r(corr, _t(xn), _t(theta), None, 1e-2, _opt(mask, _t))
+    ref = jlk._build_r(corr, jnp.asarray(xn), jnp.asarray(theta), None, 1e-2,
+                       _opt(mask, jnp.asarray))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+    assert float(got[0, 0]) > 1.01  # row sums above 1 scaled the nugget
+
+
 @pytest.mark.parametrize("corr", ["squared_exponential", "matern32"])
 def test_residual_api_matches_jax(corr):
     xn, yn, ys, theta, w = _problem(seed=1)

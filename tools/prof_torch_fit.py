@@ -9,7 +9,8 @@ kernels on the path). One warm-up fit (seed 0), then one unprofiled fit and
 one fit under ``torch.profiler`` (CPU and CUDA activities) of ``--seed``.
 Prints one JSON line: the wall times, the device busy time summed over all
 device activity in the profiled fit, the idle share, the launch counts of
-both kernels, and the ``--top`` device-time sums by kernel name.
+both kernels, the ``--top`` device-time sums by kernel name, and the sums
+of the port's own kernels whatever their rank (``own``).
 """
 
 from __future__ import annotations
@@ -78,6 +79,8 @@ def main():
             rows.append((us, evt.count, evt.key))
     rows.sort(reverse=True)
     busy_s = sum(us for us, _, _ in rows) / 1e6
+    own = [r for r in rows if any(k in r[2] for k in (
+        "corr_tile_kernel", "panel_diag_kernel", "panel_apply_kernel"))]
     print(json.dumps({
         "card": card, "seed": args.seed,
         "fit_s_unprofiled": wall_plain, "fit_s_profiled": wall_prof,
@@ -85,6 +88,8 @@ def main():
         "launches": launches,
         "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
                 for us, n, k in rows[:args.top]],
+        "own": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                for us, n, k in own],
     }), flush=True)
 
 
