@@ -9,8 +9,10 @@ Phases (any failure raises and the script exits non-zero):
 2. build: compiles the CUDA kernels from ``egobox_torch/csrc``;
 3. K1 (Gram tile) against ``corr_cross_plain`` on the card, float32:
    general and symmetric launches, ragged shapes, d from 1 to 100, large
-   theta, identical points, and the row sums it returns; times it at the
-   fit's three shapes (10000^2, 2000^2, 2000x10000);
+   theta, identical points, and the row sums it returns, every shape the
+   Egor phase launches it at included (1000^2 to 1002^2 symmetric with and
+   without row sums, the 1000x1001 and 1000x1002 cloud Grams); times it at
+   the fit's three shapes (10000^2, 2000^2, 2000x10000) and at 1000^2;
 4. K2 (Cholesky panel) against ``factor_panel_plain`` on the card at every
    block width the tests use (ragged ones included) and m in {b, b+1,
    1024, 10240}, and the K2-driven Cholesky against float64
@@ -18,9 +20,29 @@ Phases (any failure raises and the script exits non-zero):
    10240x256 panel and the n=10240 Cholesky beside ``cholesky_ex``;
 5. the slice: the dense kriging fit at n=10000, d=10 (Matern 5/2, K2-driven
    Cholesky) on Griewank data, given as numpy with no device (the entry
-   point's default, the card), then predict on 2000 holdout points.
+   point's default, the card), then predict on 2000 holdout points;
+6. egor-xsinx: ``Egor([[0, 25]], seed=s).minimize(xsinx, max_iters=20)``
+   for s in 42, 2, 3 against the golden: y = -15.125 within 1e-3 at every
+   seed, x = 18.935 within 1e-3 at seed 42 and at 2 of the 3 at least (how
+   close the last points come in x depends on the draw stream; egobox_tpu
+   itself meets that gate at 3 seeds of 4);
+7. egor-g24-utb: G24 with 2 surrogate constraints, upper trust bound, 30
+   iterations (y = -5.5080 within 1e-2, x within 1e-2 of (2.3295, 3.1785),
+   feasible to the tolerance, a 35-point DoE), then the TREGO run (40
+   iterations, the same gate on y);
+8. egor-d10-doe1000-matern52: 3 EGO iterations on Griewank (+-600, d=10)
+   from a 1000-point DoE with the Matern 5/2 kernel, asked for in float32
+   (``dtype=torch.float32``; Egor's default for a design this size is
+   float64): every likelihood evaluation of the refit and the scaling
+   cloud launch K1. K1's count rises in every iteration, each new point
+   lies in the box and is new, the best value is no worse than the DoE's;
+   the last refit's float32 likelihood, and the likelihood and gradient of
+   a stack of thetas as the lockstep lanes evaluate them, are held against
+   a float64 recomputation at the fitted theta, and the float32 surrogate's
+   prediction on 2000 holdout points against the float64 model's.
 
-It prints one JSON line describing the kernels (with each one's bound: the
+Phases 6-8 go through ``egobox_torch.Egor`` with numpy in and no device (the
+card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
 as its last line, ``{"ok": true, "device": {...}}``. Needs no network and
@@ -52,6 +74,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores
 Q2_MIN = 0.98  # bench.py:125
 DEV = "cuda"
+EGOR_SEED = 42
+XSINX_SEEDS = (42, 2, 3)  # the first is the golden's own
+XSINX_X_MIN = 2  # seeds of the set that must meet the gate on x
+# float32 against float64 in the d=10 Egor phase: the stacked adjoint's
+# error over its largest component, the holdout Q2's and the posterior
+# mean's (in standard deviations of y)
+D10_GRAD_TOL, D10_Q2_TOL, D10_MEAN_TOL = 1e-2, 1e-3, 1e-2
+G24_TOL = 1e-3
 
 
 def device_phase():
@@ -135,10 +165,12 @@ def _k1_check(torch, what, got, ref):
 def k1_phase(torch, ck):
     """K1 against its plain version. General launches: the L1 kernels and
     sqexp at 2000^2, 10000^2, the predict's 2000x10000 (d=10), the ragged
-    37x41 (d=3) and 1000x1003, and d in {1, 3, 10, 33, 64, 100}. Symmetric
-    launches (one tensor on both sides): bitwise symmetry, unit diagonal,
-    agreement with the general launch, row sums (against the plain sums,
-    and the same bits twice). Large theta (r underflows: exact zeros, no
+    37x41 (d=3) and 1000x1003, the Egor cloud's 1000x1001 and 1000x1002,
+    and d in {1, 3, 10, 33, 64, 100}. Symmetric launches (one tensor on
+    both sides) at 37, 1000-1003 (the Egor refit's sizes), 2000 and 10000:
+    bitwise symmetry, unit diagonal, agreement with the general launch, the
+    launch without row sums (the same bits), row sums (against the plain
+    sums, and the same bits twice). Large theta (r underflows: exact zeros, no
     NaN) and identical points (r = 1 everywhere). Then the times at the
     three shapes of the fit."""
     rng = np.random.default_rng(1)
@@ -156,7 +188,8 @@ def k1_phase(torch, ck):
                             device=dev)
 
     cases = [(2000, 2000, 10), (10_000, 10_000, 10), (2000, 10_000, 10),
-             (37, 41, 3), (1000, 1003, 10)]
+             (37, 41, 3), (1000, 1003, 10), (1000, 1001, 10),
+             (1000, 1002, 10)]
     cases += [(129, 70, d) for d in (1, 3, 10, 33, 64, 100)]
     for n1, n2, d in cases:
         x1, x2 = rand(n1, d), rand(n2, d)
@@ -171,13 +204,16 @@ def k1_phase(torch, ck):
 
     # one tensor on both sides: the symmetric launch, with the row sums
     worst_sum = 0.0
-    for n in (37, 1003, 2000, 10_000):
+    for n in (37, 1000, 1001, 1002, 1003, 2000, 10_000):
         x, th = rand(n, 10), theta(10, hi=0.6)
         for name in names:
             got, sums = ck.corr_cross_tile(name, x, x, th, row_sums=True)
             ref = ck.corr_cross_plain(name, x, x, th)
             what = f"{name} symmetric {n}"
             worst = max(worst, _k1_check(torch, what, got, ref))
+            if not torch.equal(ck.corr_cross_tile(name, x, x, th), got):
+                raise RuntimeError(f"K1 {what}: the launch without row sums "
+                                   "gives other bits")
             if not (torch.equal(got, got.T)
                     and bool((got.diagonal() == 1.0).all())):
                 raise RuntimeError(f"K1 {what}: not bitwise symmetric with "
@@ -223,6 +259,38 @@ def k1_phase(torch, ck):
                                          got, torch.ones_like(got)))
             n_cases += 1
 
+    # a Gram that autograd records: K1 has no backward, so the wrapper
+    # raises and corr_cross differentiates the plain formula; its gradient
+    # against the plain version's
+    from egobox_torch.gp import kernels as tk
+
+    x1 = rand(1000, 10).requires_grad_(True)
+    x2, th = rand(1003, 10), theta(10)
+    weight = rand(1000, 1003)
+    try:
+        ck.corr_cross_tile("matern52", x1, x2, th)
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+    else:
+        raise RuntimeError("K1 took an input that requires grad")
+    before = ck.launches
+    (g_got,) = torch.autograd.grad(
+        (tk.corr_cross("matern52", x1, x2, th) * weight).sum(), x1)
+    (g_ref,) = torch.autograd.grad(
+        (ck.corr_cross_plain("matern52", x1, x2, th) * weight).sum(), x1)
+    grad_err = float(torch.max(torch.abs(g_got - g_ref)))
+    if ck.launches != before or not grad_err <= 1e-4 * float(
+            torch.max(torch.abs(g_ref))):
+        raise RuntimeError(f"corr_cross with grad: launches "
+                           f"{ck.launches - before}, err {grad_err:.3g}")
+    with torch.no_grad():
+        tk.corr_cross("matern52", x1, x2, th)
+    if ck.launches != before + 1:
+        raise RuntimeError("corr_cross without grad did not launch K1")
+    n_cases += 1
+    del x1, x2, weight, g_got, g_ref
+
     # timing at the slice's shapes: matern52, d=10; R(x, x) at 10000^2 and
     # 2000^2 (one tensor: the symmetric launch), the predict's 2000x10000
     x = rand(N_TRAIN, DIM)
@@ -235,6 +303,13 @@ def k1_phase(torch, ck):
                                                        th))
     pred_ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", xh, x,
                                                         th))
+    # the Egor cell's shape: R(x, x) at 1000^2 as the stacked likelihood of
+    # the lockstep lanes launches it (no row sums), and with them
+    xe = rand(1000, DIM)
+    egor_ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", xe, xe,
+                                                        th))
+    egor_sums_ms = time_ms(torch, lambda: ck.corr_cross_tile(
+        "matern52", xe, xe, th, row_sums=True))
     plain_ms = time_ms(torch, lambda: ck.corr_cross_plain("matern52", x, x,
                                                           th))
 
@@ -247,18 +322,24 @@ def k1_phase(torch, ck):
     bound_ms, bound_by = k1_bound(N_TRAIN, N_TRAIN)
     sub_bound_ms, _ = k1_bound(2000, 2000)
     pred_bound_ms, _ = k1_bound(N_HOLD, N_TRAIN)
+    egor_bound_ms, _ = k1_bound(1000, 1000)
     print(f"K1 corr_tile: {n_cases} cases, max abs err {worst!r} (atol "
           f"{K1_ATOL}), row sums max rel err {worst_sum!r} (rtol 1e-5, "
           f"bitwise repeatable); matern52 d=10: 10000x10000 kernel {ms!r} "
           f"ms (with row sums {sums_ms!r} ms), plain {plain_ms!r} ms, bound "
           f"{bound_ms!r} ms ({bound_by}); 2000x2000 kernel {sub_ms!r} ms, "
           f"bound {sub_bound_ms!r} ms; 2000x10000 kernel {pred_ms!r} ms, "
-          f"bound {pred_bound_ms!r} ms", flush=True)
+          f"bound {pred_bound_ms!r} ms; 1000x1000 kernel {egor_ms!r} ms (with "
+          f"row sums {egor_sums_ms!r} ms), bound {egor_bound_ms!r} ms; "
+          f"gradient through corr_cross "
+          f"(plain formula) max abs err {grad_err!r}", flush=True)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 row_sums_ms=sums_ms, row_sums_max_rel_err=worst_sum,
                 ms_2000x2000=sub_ms, bound_ms_2000x2000=sub_bound_ms,
-                ms_2000x10000=pred_ms, bound_ms_2000x10000=pred_bound_ms)
+                ms_2000x10000=pred_ms, bound_ms_2000x10000=pred_bound_ms,
+                ms_1000x1000=egor_ms, row_sums_ms_1000x1000=egor_sums_ms,
+                bound_ms_1000x1000=egor_bound_ms)
 
 
 def _spd(torch, n, seed):
@@ -448,9 +529,209 @@ def slice_phase(torch, ck, chk):
     return launches, by_shape
 
 
+def xsinx(x):
+    x = np.atleast_2d(x)
+    return ((x - 3.5) * np.sin((x - 3.5) / np.pi)).reshape(-1, 1)
+
+
+def g24(point):
+    """G24: objective and its two constraints g(x) <= 0 as columns."""
+    p = np.atleast_2d(point)
+    x1, x2 = p[:, 0], p[:, 1]
+    c1 = -2.0 * x1**4 + 8.0 * x1**3 - 8.0 * x1**2 + x2 - 2.0
+    c2 = (-4.0 * x1**4 + 32.0 * x1**3 - 88.0 * x1**2 + 96.0 * x1 + x2
+          - 36.0)
+    return np.array([-x1 - x2, c1, c2]).T
+
+
+def _egor_report(torch, name, egor, res, iters, dtype, extra=""):
+    """The checks every Egor phase shares and its one line of results."""
+    models = egor.solver.last_models
+    if not (models.r_chol.is_cuda and models.theta.is_cuda):
+        raise RuntimeError(f"{name}: the surrogates are on "
+                           f"{models.r_chol.device}, not the card")
+    if models.r_chol.dtype != dtype:
+        raise RuntimeError(f"{name}: surrogates in {models.r_chol.dtype}, "
+                           f"expected {dtype}")
+    times = egor.iteration_times
+    if len(times) != iters:
+        raise RuntimeError(f"{name}: {len(times)} iterations, not {iters}")
+    if not (np.all(np.isfinite(res.x_doe)) and np.all(np.isfinite(res.y_doe))):
+        raise RuntimeError(f"{name}: non-finite DoE")
+    tot = [t["total"] for t in times]
+    print(f"{name}: x_opt {res.x_opt.tolist()}, y_opt {res.y_opt.tolist()}, "
+          f"{len(times)} iterations in {models.r_chol.dtype}, per EGO "
+          f"iteration median {statistics.median(tot)!r} s, max {max(tot)!r} s"
+          f" (fit median {statistics.median(t['fit'] for t in times)!r} s, "
+          f"infill median "
+          f"{statistics.median(t['infill'] for t in times)!r} s){extra}",
+          flush=True)
+
+
+def egor_xsinx_phase(torch, egx):
+    x_met = []
+    for seed in XSINX_SEEDS:
+        egor = egx.Egor([[0.0, 25.0]], seed=seed)
+        res = egor.minimize(xsinx, max_iters=20)
+        _egor_report(torch, f"egor-xsinx seed {seed}", egor, res, 20,
+                     torch.float64)
+        if not abs(res.y_opt[0] + 15.125) < 1e-3:
+            raise RuntimeError(f"egor-xsinx seed {seed}: golden missed: y "
+                               f"{res.y_opt}")
+        x_met.append(bool(abs(res.x_opt[0] - 18.935) < 1e-3))
+    print(f"egor-xsinx: x within 1e-3 of 18.935 at seeds "
+          f"{[s for s, ok in zip(XSINX_SEEDS, x_met) if ok]} of "
+          f"{list(XSINX_SEEDS)}", flush=True)
+    if not (x_met[0] and sum(x_met) >= XSINX_X_MIN):
+        raise RuntimeError(f"egor-xsinx: x gate met at {x_met} of seeds "
+                           f"{XSINX_SEEDS}")
+
+
+def egor_g24_phase(torch, egx):
+    kw = dict(cstr_tol=np.array([G24_TOL, G24_TOL]), n_cstr=2,
+              seed=EGOR_SEED, n_doe=5)
+    box = [[0.0, 3.0], [0.0, 4.0]]
+    egor = egx.Egor(box, q_optmod=2,
+                    cstr_strategy=egx.ConstraintStrategy.UTB, **kw)
+    res = egor.minimize(g24, max_iters=30)
+    _egor_report(torch, "egor-g24-utb", egor, res, 30, torch.float64)
+    if not (abs(res.y_opt[0] + 5.5080) < 1e-2
+            and abs(res.x_opt[0] - 2.3295) < 1e-2
+            and abs(res.x_opt[1] - 3.1785) < 1e-2
+            and np.all(res.y_opt[1:] <= G24_TOL)
+            and res.x_doe.shape == (35, 2) and res.y_doe.shape == (35, 3)):
+        raise RuntimeError(f"egor-g24-utb: golden missed: x {res.x_opt}, "
+                           f"y {res.y_opt}, DoE {res.x_doe.shape}")
+    egor = egx.Egor(box, trego=True, **kw)
+    res = egor.minimize(g24, max_iters=40)
+    _egor_report(torch, "egor-g24-trego", egor, res, 40, torch.float64)
+    if not (abs(res.y_opt[0] + 5.5080) < 1e-2
+            and np.all(res.y_opt[1:] <= G24_TOL)):
+        raise RuntimeError(f"egor-g24-trego: golden missed: x {res.x_opt}, "
+                           f"y {res.y_opt}")
+
+
+def egor_d10_phase(torch, egx, ck):
+    """3 EGO iterations from a 1000-point DoE, d=10, Matern 5/2, float32:
+    the size at which the Egor loop's Grams (1000^2 x 10 = 1e7 elements)
+    are K1's. Returns K1's launches per iteration."""
+    n_doe, iters = 1000, 3
+    box = np.array([[-600.0, 600.0]] * DIM)
+    rng = np.random.default_rng(EGOR_SEED)
+    doe = rng.uniform(-600.0, 600.0, (n_doe, DIM))
+    counts = []
+
+    def fun(x):
+        counts.append(ck.launches)  # once for the DoE, once per iteration
+        return griewank(np.atleast_2d(x)).reshape(-1, 1)
+
+    egor = egx.Egor(box, doe=doe, corr_spec=egx.CorrelationSpec.MATERN52,
+                    seed=EGOR_SEED, dtype=torch.float32)
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    res = egor.minimize(fun, max_iters=iters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    per_iter = [b - a for a, b in zip(counts, counts[1:])]
+    by_shape = {f"{n1}x{n2}": c
+                for (n1, n2), c in sorted(ck.launch_shapes.items())}
+    _egor_report(torch, "egor-d10-doe1000-matern52", egor, res, iters,
+                 torch.float32,
+                 f"; K1 launches per iteration {per_iter}, by shape "
+                 f"{by_shape}; fit / cloud / infill s per iteration "
+                 f"{[(t['fit'], t['cloud'], t['infill']) for t in egor.iteration_times]}"
+                 f"; peak memory {peak_gib!r} GiB")
+    if len(per_iter) != iters or min(per_iter) <= 0:
+        raise RuntimeError(f"egor-d10: K1 launches per iteration {per_iter}")
+    new = res.x_doe[n_doe:]
+    if res.x_doe.shape != (n_doe + iters, DIM) or not (
+            np.all(new >= box[:, 0]) and np.all(new <= box[:, 1])):
+        raise RuntimeError(f"egor-d10: DoE {res.x_doe.shape}, new points "
+                           f"{new.tolist()}")
+    for i in range(iters):
+        dist = np.abs(res.x_doe[:n_doe + i] - new[i]).sum(axis=1)
+        if not dist.min() > 0:
+            raise RuntimeError(f"egor-d10: point {i} repeats a known one")
+    if not res.y_opt[0] <= griewank(doe).min():
+        raise RuntimeError(f"egor-d10: y_opt {res.y_opt[0]} above the DoE's "
+                           f"best {griewank(doe).min()}")
+    egor_d10_float32_check(torch, egor, res, rng)
+    return per_iter, by_shape
+
+
+def egor_d10_float32_check(torch, egor, res, rng):
+    """What float32 cost the last refit of the d=10 run, at its fitted
+    theta: the stored likelihood, and the likelihood and gradient of a
+    stack of thetas as the lockstep lanes evaluate them (K1 Grams, batched
+    factorizations, the analytic adjoint), against a float64 model at the
+    same theta; and the float32 surrogate's prediction on 2000 holdout
+    points against that model's."""
+    from egobox_torch import gp
+    from egobox_torch.ego.surrogates import predict_valvar_cloud
+    from egobox_torch.gp.likelihood import make_neg_reduced_likelihood
+
+    models = egor.solver.last_models
+    n = models.x_norm.shape[1]  # the last refit's design
+    theta = models.theta[0]
+    nugget = 100.0 * torch.finfo(torch.float32).eps
+    x64 = torch.tensor(res.x_doe[:n], dtype=torch.float64, device=DEV)
+    y64 = torch.tensor(res.y_doe[:n, 0], dtype=torch.float64, device=DEV)
+    m64 = gp.fit_gp(x64, y64, corr="matern52", theta_init=theta.double(),
+                    theta_fixed=True, nugget=nugget)
+    lkh32, lkh64 = float(models.likelihood[0]), float(m64.likelihood)
+    rel = abs(lkh32 - lkh64) / abs(lkh64)
+
+    def value_and_grad(x_norm, y_norm, y_std, thetas):
+        f = make_neg_reduced_likelihood("matern52", "constant", x_norm,
+                                        y_norm, y_std, None, nugget)
+        th = thetas.clone().requires_grad_(True)
+        v = f(th)
+        (g,) = torch.autograd.grad(v.sum(), th)
+        return v.detach().double(), g.double()
+
+    # the fitted theta and two neighbours, as one stack (float32) and one
+    # by one (float64)
+    stack = torch.stack([theta, 0.8 * theta, 1.25 * theta])
+    y32 = torch.tensor(res.y_doe[:n, :1], dtype=torch.float32, device=DEV)
+    v32, g32 = value_and_grad(
+        models.x_norm[0], (y32 - models.y_mean[0]) / models.y_std[0],
+        models.y_std[0], stack)
+    y_norm64 = (y64[:, None] - m64.y_mean) / m64.y_std
+    v64, g64 = zip(*(value_and_grad(m64.x_norm, y_norm64, m64.y_std, t)
+                     for t in stack.double()))
+    v64, g64 = torch.stack(v64), torch.stack(g64)
+    v_rel = float(torch.max(torch.abs(v32 - v64) / torch.abs(v64)))
+    g_rel = float(torch.max(torch.abs(g32 - g64))
+                  / torch.max(torch.abs(g64)))
+
+    xh = rng.uniform(-600.0, 600.0, (N_HOLD, DIM))
+    yh = torch.tensor(griewank(xh), dtype=torch.float64, device=DEV)
+    mean32 = predict_valvar_cloud(
+        models, torch.tensor(xh, dtype=torch.float32, device=DEV))[0][0]
+    mean64 = gp.predict_valvar(
+        m64, torch.tensor(xh, dtype=torch.float64, device=DEV))[0]
+
+    def q2(mean):
+        return 1.0 - float(torch.sum((yh - mean.double()) ** 2)
+                           / torch.sum((yh - yh.mean()) ** 2))
+
+    q2_32, q2_64 = q2(mean32), q2(mean64)
+    mean_err = float(torch.max(torch.abs(mean32.double() - mean64))
+                     / m64.y_std.reshape(()))
+    print(f"egor-d10 float32 against float64 at the fitted theta (n={n}): "
+          f"likelihood {lkh32!r} vs {lkh64!r} (rel {rel!r}); stack of 3 "
+          f"thetas: value rel {v_rel!r}, gradient {g_rel!r} of its largest "
+          f"component; holdout Q2 {q2_32!r} vs {q2_64!r}, posterior mean "
+          f"within {mean_err!r} y-std", flush=True)
+    if not (rel <= 1e-3 and v_rel <= 1e-3 and g_rel <= D10_GRAD_TOL
+            and abs(q2_32 - q2_64) <= D10_Q2_TOL
+            and mean_err <= D10_MEAN_TOL):
+        raise RuntimeError("egor-d10: float32 strays from float64")
+
+
 def main():
     torch = device_phase()
-    import_port()
+    egx = import_port()
     from egobox_torch.gp import likelihood as lik
     from egobox_torch.ops import build, chol_kernel as chk, corr_kernel as ck
 
@@ -471,13 +752,20 @@ def main():
     k1 = k1_phase(torch, ck)
     k2 = k2_phase(torch, chk, lik)
     launches, k1_by_shape = slice_phase(torch, ck, chk)
+    os.environ["EGOBOX_CHOL"] = "native"
+    egor_xsinx_phase(torch, egx)
+    egor_g24_phase(torch, egx)
+    egor_k1_per_iter, egor_k1_by_shape = egor_d10_phase(torch, egx, ck)
 
     kernels = [
         dict(name="corr_tile", route="cuda",
              source="egobox_torch/csrc/corr_tile.cu",
              replaces="egobox_tpu/ops/pallas_corr.py:73",
              launches=launches["corr_tile"],
-             launches_by_shape=k1_by_shape, **k1),
+             launches_by_shape=k1_by_shape,
+             launches_egor_d10=sum(egor_k1_per_iter),
+             launches_egor_d10_per_iteration=egor_k1_per_iter,
+             launches_egor_d10_by_shape=egor_k1_by_shape, **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",

@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of egobox_tpu's dense kriging path.
+"""PyTorch / CUDA port of egobox_tpu: dense kriging and the Egor optimizer.
 
 The port mirrors egobox_tpu's module layout and function names; egobox_tpu
 stays the reference it is tested against. This package imports neither jax
@@ -8,5 +8,50 @@ kernels under ``csrc/`` are compiled at their first launch.
 
 from . import config
 from .config import default_dtype
+from .types import (
+    ConstraintStrategy,
+    CorrelationSpec,
+    ExpectedOptimum,
+    GpFileFormat,
+    HotStartMode,
+    InfillOptimizer,
+    InfillStrategy,
+    OptimResult,
+    QInfillStrategy,
+    Recombination,
+    RegressionSpec,
+    RunInfo,
+    Sampling,
+    SparseMethod,
+    XSpec,
+    XType,
+)
+from . import doe, ego, gp, optim
+from .ego import Egor, GpConfig
 
-__all__ = ["config", "default_dtype"]
+__all__ = [
+    "ConstraintStrategy",
+    "CorrelationSpec",
+    "Egor",
+    "ExpectedOptimum",
+    "GpConfig",
+    "GpFileFormat",
+    "HotStartMode",
+    "InfillOptimizer",
+    "InfillStrategy",
+    "OptimResult",
+    "QInfillStrategy",
+    "Recombination",
+    "RegressionSpec",
+    "RunInfo",
+    "Sampling",
+    "SparseMethod",
+    "XSpec",
+    "XType",
+    "config",
+    "default_dtype",
+    "doe",
+    "ego",
+    "gp",
+    "optim",
+]

@@ -40,6 +40,30 @@ def default_dtype(device=None) -> torch.dtype:
     return torch.float64
 
 
+#: designs below this many points are fitted by the library Cholesky
+#: (gp/likelihood.py _CHOL_NATIVE_MAX); the Egor loop computes them in
+#: float64 on CUDA
+_EGOR_FLOAT64_BELOW = 4096
+
+
+def egor_dtype(device, n: int) -> torch.dtype:
+    """The type the Egor loop computes its surrogates and infill in for a
+    design of n points, unless the caller fixes one (``Egor(dtype=...)``).
+
+    On CUDA, designs below 4 096 points are computed in float64, whatever
+    the kernel. The EGO loop clusters its design around the optimum, the
+    Gram's condition number reaches 1 / nugget, and in float32 the
+    posterior mean then carries an error of the order of the constraint
+    tolerances (the G24 golden lands at -5.44 instead of -5.508 in
+    float32). Such designs are bound by launches, not by arithmetic, and
+    the card has a real FP64 rate. ``Egor(dtype=torch.float32)`` asks for
+    float32, the type the K1 kernel builds large L1-family Grams in."""
+    base = default_dtype(device)
+    if base == torch.float32 and n < _EGOR_FLOAT64_BELOW:
+        return torch.float64
+    return base
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else the
     GPU. Without one the default raises; it never falls back to the CPU."""

@@ -1,6 +1,8 @@
-"""Build the port's ``GpModel`` from the arrays of a model fitted elsewhere
-(e.g. an egobox_tpu ``GpModel`` converted field by field with
-``np.asarray``), so the port can serve it."""
+"""Carry weights and state over from a model fitted or a run started
+elsewhere: the port's ``GpModel`` (one model, or the surrogate container
+with a leading output axis) from the arrays of e.g. an egobox_tpu
+``GpModel`` converted field by field with ``np.asarray``, and ``EgorState``
+from the hot-start checkpoint payload."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import numpy as np
 import torch
 
 from .config import default_dtype, resolve_device
+from .ego.state import EgorState
 from .gp.gp import GpModel
 
 _STATIC = ("corr", "trend")
@@ -42,3 +45,35 @@ def gp_model_from_numpy(fields: dict, corr: str, trend: str, device=None,
         out[k] = torch.from_numpy(np.array(v)).to(device=device,
                                                   dtype=t_dtype)
     return GpModel(**out, corr=corr, trend=trend)
+
+
+def gp_surrogates_from_numpy(fields: dict, corr: str, trend: str,
+                             device=None, dtype=None) -> GpModel:
+    """The surrogate container of the EGO loop (``ego.surrogates``: one
+    ``GpModel`` whose tensors carry a leading axis over the 1 + n_cstr
+    outputs) from the arrays of egobox_tpu's batched ``GpModel``, which has
+    the same layout. ``fields`` and the other arguments are those of
+    ``gp_model_from_numpy``."""
+    models = gp_model_from_numpy(fields, corr, trend, device, dtype)
+    if models.x_norm.ndim != 3:
+        raise ValueError(
+            "gp_surrogates_from_numpy: expected fields with a leading "
+            f"output axis, x_norm has shape {tuple(models.x_norm.shape)}"
+        )
+    m = models.x_norm.shape[0]
+    for f in dataclasses.fields(GpModel):
+        v = getattr(models, f.name)
+        if isinstance(v, torch.Tensor) and v.shape[0] != m:
+            raise ValueError(
+                f"gp_surrogates_from_numpy: {f.name} has leading axis "
+                f"{v.shape[0]}, expected {m}"
+            )
+    return models
+
+
+def egor_state_from_dict(payload: dict) -> EgorState:
+    """``EgorState`` from the payload of ``EgorState.to_dict()``, the
+    hot-start checkpoint ``egor_checkpoint.json``; egobox_tpu writes the
+    same payload, so its checkpoints resume in the port. A payload that
+    carries clustered-surrogate state raises ``NotImplementedError``."""
+    return EgorState.from_dict(payload)

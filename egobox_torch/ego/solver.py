@@ -1,0 +1,641 @@
+"""EgorSolver: the EGO iteration engine (port of egobox_tpu/ego/solver.py,
+its unfused path).
+
+The outer ask/eval/tell loop stays in Python (it calls the user's
+objective); the DoE and the bookkeeping live in numpy; every phase of an
+iteration (surrogate training for objective and constraints, the
+scaling-cloud evaluation and the constrained multistart infill
+optimization) runs on the solver's device. The design is fitted unpadded:
+nothing compiles per shape, so there is no bucket to pad to.
+
+Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
+clustered (MoE) surrogates, the fused / traced single-program iterations,
+the sigma-weight portfolio, CoEGO, and the derivative-free polish for
+function constraints that are host callbacks.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import egor_dtype, resolve_device
+from ..doe.lhs import LhsKind, lhs_normalized
+from ..gp import fit as gp_fit
+from ..gp.kernels import theta_bounds_heuristic
+from ..types import (
+    ConstraintStrategy,
+    InfillOptimizer,
+    InfillStrategy,
+    QInfillStrategy,
+)
+from .config import MAX_POINT_ADDITION_RETRY, EgorConfig
+from .find_result import (
+    find_best_result_index,
+    find_best_result_index_from,
+    is_feasible,
+)
+from .infill_optim import (
+    _eval_fcstrs,
+    compute_scaling,
+    optimize_infill,
+    virtual_point,
+)
+from .recorders import record_gp_models
+from .start_points import middle_picker_starts
+from .state import EgorState
+from .surrogates import GpSpec, train_gp_surrogates
+
+logger = logging.getLogger("egobox_torch.ego")
+
+_CRIT_NAME = {
+    InfillStrategy.EI: "EI",
+    InfillStrategy.WB2: "WB2",
+    InfillStrategy.WB2S: "WB2S",
+    InfillStrategy.LOG_EI: "LogEI",
+}
+_CSTR_NAME = {
+    ConstraintStrategy.MC: "MC",
+    ConstraintStrategy.UTB: "UTB",
+}
+_QEI_NAME = {
+    QInfillStrategy.KB: "KB",
+    QInfillStrategy.KBLB: "KBLB",
+    QInfillStrategy.KBUB: "KBUB",
+    QInfillStrategy.CLMIN: "CLMIN",
+}
+_OPT_NAME = {
+    InfillOptimizer.COBYLA: "COBYLA",
+    InfillOptimizer.SLSQP: "SLSQP",
+}
+
+
+class NoMorePointToAddError(RuntimeError):
+    """Raised when point-addition retries are exhausted: the solver is
+    considered converged (ref: solver_impl.rs:505-515)."""
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"egobox_torch: {what} is not ported (ROADMAP Queue 1: {item})"
+    )
+
+
+class SolverDraws:
+    """Every random draw of the EGO loop that does not come from
+    ``state.rng``: the initial DoE, the scaling cloud, the LHS completion of
+    the multistart seeds and the restart seeds of the fits. One CPU
+    ``torch.Generator`` seeded with the solver's seed serves the first
+    three; a fit's draws come from ``FitDraws(seed)`` with the seed the
+    solver drew from ``state.rng``. Tests replace ``solver.draws`` to hand
+    in egobox_tpu's draws."""
+
+    def __init__(self, seed: int):
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def lhs(self, n: int, xlimits: np.ndarray,
+            kind: LhsKind = LhsKind.MAXIMIN) -> np.ndarray:
+        """(n, nx) LHS points of ``kind`` inside ``xlimits`` (nx, 2)."""
+        pts = lhs_normalized(self.generator, n, xlimits.shape[0], kind,
+                             torch.float64, "cpu").numpy()
+        return pts * (xlimits[:, 1] - xlimits[:, 0]) + xlimits[:, 0]
+
+    def fit_draws(self, seed: int):
+        return gp_fit._fit_draws(seed)
+
+
+def impute_failed_values(y_new: np.ndarray, y_ref: np.ndarray) -> np.ndarray:
+    """Replace non-finite entries of ``y_new`` (rows, cols) with a
+    worst-observed penalty per column derived from the finite values of
+    ``y_ref`` (max + 3 sigma; a fixed 1e6 when the column has no finite
+    reference at all). Applied to new points and to the initial DoE: a
+    NaN/inf anywhere in the history would otherwise poison the GP
+    normalization."""
+    bad = ~np.isfinite(y_new)
+    if not bad.any():
+        return y_new
+    logger.warning("imputing %d failed objective value(s)",
+                   int(bad.sum()))
+    y_new = y_new.copy()
+    for j in range(y_new.shape[1]):
+        col_ref = y_ref[:, j]
+        finite = col_ref[np.isfinite(col_ref)]
+        if finite.size:
+            penalty = finite.max() + 3.0 * max(finite.std(), 1.0)
+        else:
+            penalty = 1e6
+        y_new[bad[:, j], j] = penalty
+    return y_new
+
+
+class EgorSolver:
+    """Continuous-space EGO solver. Mixed-integer handling wraps this via
+    egobox_torch.ego.mixint (like the reference's MixintGpMixture
+    decorators).
+
+    ``device``: where the surrogates and the infill optimization run
+    (default: the GPU, and a host without one raises; ``"cpu"`` for the
+    CPU). ``dtype`` fixes the type they compute in; by default it follows
+    ``config.egor_dtype`` (float64 on the CPU, and on CUDA for designs
+    below 4 096 points). With ``dtype=torch.float32`` on CUDA the K1 kernel
+    builds the large L1-family Grams of the refit and the scaling cloud."""
+
+    def __init__(self, config: EgorConfig, xlimits: np.ndarray, device=None,
+                 dtype=None):
+        self.config = config.check()
+        self.device = resolve_device(device)
+        self._dtype = dtype
+        self.xlimits = np.asarray(xlimits, dtype=float)
+        self.nx = self.xlimits.shape[0]
+        gpc = config.gp_config
+        dim = gpc.kpls_dim if gpc.kpls_dim is not None else self.nx
+        corr = gpc.corr_names[0]
+        trend = gpc.regr_names[0]
+        self.spec = GpSpec(
+            corr=corr,
+            trend=trend,
+            kpls_dim=gpc.kpls_dim,
+            n_start=gpc.n_start,
+            max_iters=gpc.max_eval,
+        )
+        # dim-aware theta bounds for high-dim problems
+        # (ref: ego/src/utils/bounds.rs via egor_solver)
+        if gpc.theta_bounds is not None:
+            self.theta_bounds = np.asarray(gpc.theta_bounds, dtype=float)
+        elif dim >= 10:
+            lo, up = theta_bounds_heuristic(corr, dim)
+            self.theta_bounds = np.array([float(lo), float(up)])
+        else:
+            self.theta_bounds = np.array([1e-2, 1e1])
+        self.theta_init = (
+            np.asarray(gpc.theta_init, dtype=float)
+            if gpc.theta_init is not None
+            else None
+        )
+        self.draws = SolverDraws(
+            config.seed if config.seed is not None else 0
+        )
+        self._iter_dtype = egor_dtype(self.device, 0)
+        #: optional discrete-casting hook installed by the mixint layer
+        #: (ref: MixintGpMixture input casting, gpmix/mixint.rs:295-746)
+        self.cast_fn = None
+        #: the surrogates of the last training and the seconds the last
+        #: ``select_next_points`` spent per phase (fit, cloud, infill)
+        self.last_models = None
+        self.last_times = {}
+        self._fcstr_probe_cache = {}
+
+    def _cast(self, x: np.ndarray) -> np.ndarray:
+        return self.cast_fn(x) if self.cast_fn is not None else x
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The type of the current iteration's tensors (set by
+        ``select_next_points`` from the design's size unless fixed)."""
+        return self._dtype or self._iter_dtype
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+
+    def _lhs(self, n: int, kind=LhsKind.MAXIMIN) -> np.ndarray:
+        return self.draws.lhs(n, self.xlimits, kind)
+
+    def _lhs_in(self, n: int, xlimits: np.ndarray) -> np.ndarray:
+        """Maximin-LHS seeds in ``xlimits``."""
+        return self.draws.lhs(n, np.asarray(xlimits, dtype=float),
+                              LhsKind.MAXIMIN)
+
+    def default_n_doe(self) -> int:
+        n = self.config.n_doe
+        return n if n > 0 else max(self.nx + 1, 5)
+
+    # ------------------------------------------------------------------
+    # initialization (ref: egor_solver.rs:181-348)
+    # ------------------------------------------------------------------
+
+    def init_state(
+        self,
+        fobj: Callable[[np.ndarray], np.ndarray],
+        fcstrs: Sequence[Callable] = (),
+        doe: Optional[np.ndarray] = None,
+        y_doe: Optional[np.ndarray] = None,
+    ) -> EgorState:
+        cfg = self.config
+        if doe is None:
+            doe = (
+                np.asarray(cfg.doe, dtype=float)
+                if cfg.doe is not None
+                else self._cast(
+                    self._lhs(self.default_n_doe(), LhsKind.OPTIMIZED)
+                )
+            )
+        x_data = np.atleast_2d(np.asarray(doe, dtype=float))
+        if y_doe is not None:
+            y_data = np.atleast_2d(np.asarray(y_doe, dtype=float))
+        else:
+            y_data = np.atleast_2d(np.asarray(fobj(x_data), dtype=float))
+        if y_data.shape[1] != 1 + cfg.n_cstr:
+            raise ValueError(
+                f"objective returned {y_data.shape[1]} columns, expected "
+                f"1 + n_cstr = {1 + cfg.n_cstr}"
+            )
+        # failed evaluations in the initial DoE poison the GP normalization
+        # exactly like later ones: impute them against the DoE itself
+        y_data = impute_failed_values(y_data, y_data)
+        c_data = self._eval_fcstrs(fcstrs, x_data)
+        cstr_tol = cfg.resolved_cstr_tol(len(fcstrs))
+
+        best = find_best_result_index(y_data, c_data, cstr_tol)
+        state = EgorState(
+            x_data=x_data,
+            y_data=y_data,
+            c_data=c_data,
+            cstr_tol=cstr_tol,
+            best_index=best,
+            feasibility=is_feasible(y_data[best], c_data[best], cstr_tol),
+            added=x_data.shape[0],
+            no_point_added_retries=MAX_POINT_ADDITION_RETRY,
+            sigma=cfg.trego.sigma0,
+            rng=np.random.default_rng(cfg.seed),
+        )
+        return state
+
+    def _eval_fcstrs(self, fcstrs, x: np.ndarray) -> np.ndarray:
+        """Function constraints on the host, one (nx,) float64 CPU tensor
+        per point (the form ``_fcstrs_traceable`` asks of them)."""
+        if not fcstrs:
+            return np.zeros((x.shape[0], 0))
+        out = np.zeros((x.shape[0], len(fcstrs)))
+        for i, xi in enumerate(x):
+            xt = torch.as_tensor(np.asarray(xi, dtype=float))
+            for j, c in enumerate(fcstrs):
+                out[i, j] = float(c(xt))
+        return out
+
+    # ------------------------------------------------------------------
+    # surrogate training (ref: make_clustered_surrogate,
+    # solver_impl.rs:121-296, single-cluster GP path)
+    # ------------------------------------------------------------------
+
+    def _train(self, state: EgorState, xt: np.ndarray, yt: np.ndarray,
+               optimize_theta: bool):
+        gpc = self.config.gp_config
+        multi_combo = (
+            len(gpc.regr_names) > 1 or len(gpc.corr_names) > 1
+        )
+        if gpc.n_clusters != 1 or multi_combo:
+            models = self._train_moe(state, xt, yt, optimize_theta)
+        else:
+            models = self._train_gp_batched(state, xt, yt, optimize_theta)
+        record_gp_models(self.config.outdir, state.iter, models)
+        self.last_models = models
+        return models
+
+    def _train_moe(self, state, xt, yt, optimize_theta=True):
+        raise _not_ported(
+            "clustered or multi-kernel surrogate training (n_clusters != 1, "
+            "several regression or correlation models)",
+            "MoE surrogates in Egor",
+        )
+
+    def _gp_n_start(self, state: EgorState) -> int:
+        """Effective MLE multistart width of this iteration's refit.
+
+        The cold fit (iter 0) keeps the full ``n_start`` width; every later
+        refit re-seeds only ``warm_refit_n_start`` lanes. As in egobox_tpu
+        the test is ``state.iter``, not whether thetas were carried: a
+        resumed state without ``theta_inits`` at iter >= 1 refits from the
+        default init at the narrow width. None (or n_start <= 0, the
+        fixed-theta convention) disables."""
+        w = self.config.warm_refit_n_start
+        ns = self.spec.n_start
+        if w is None or ns <= 0 or int(state.iter) < 1:
+            return ns
+        return min(ns, int(w))
+
+    def _train_gp_batched(self, state: EgorState, xt: np.ndarray,
+                          yt: np.ndarray, optimize_theta: bool):
+        dim = (
+            self.spec.kpls_dim
+            if self.spec.kpls_dim is not None
+            else self.nx
+        )
+        m = yt.shape[1]
+        theta0s = state.theta_inits
+        if theta0s is None or theta0s.shape != (m, dim):
+            if self.theta_init is not None:
+                theta0s = np.broadcast_to(
+                    self.theta_init, (m, dim)
+                ).copy()
+            else:
+                theta0s = np.full((m, dim), 0.1)
+        if self.config.coego_n_coop > 1:
+            raise _not_ported("CoEGO (coego_n_coop > 1)",
+                              "CoEGO and the sigma-weight portfolio")
+        models = train_gp_surrogates(
+            self._tensor(xt), self._tensor(yt), None, self.spec,
+            theta0s=self._tensor(theta0s),
+            optimize_theta=optimize_theta,
+            theta_bounds=self._tensor(self.theta_bounds),
+            seed=int(state.rng.integers(0, 2**31)),
+            n_start=self._gp_n_start(state),
+            fit_draws=self.draws.fit_draws,
+        )
+        state.theta_inits = models.theta.double().cpu().numpy()
+        return models
+
+    # ------------------------------------------------------------------
+    # point selection (ref: select_next_points, solver_impl.rs:562-807)
+    # ------------------------------------------------------------------
+
+    def _multistart_seeds(self, state: EgorState, xt: np.ndarray,
+                          xlimits: np.ndarray,
+                          seed_xlimits: Optional[np.ndarray]) -> np.ndarray:
+        """Multistart seeds: middle-picker + LHS completion for global
+        steps; pure local LHS inside a TREGO trust region
+        (ref: trego.rs LocalLhsMultiStarter). The env kill-switch matches
+        EGOR_DO_NOT_USE_MIDDLEPICKER_MULTISTARTER (ref: utils/mod.rs)."""
+        cfg = self.config
+        use_middle = not os.environ.get(
+            "EGOR_DO_NOT_USE_MIDDLEPICKER_MULTISTARTER"
+        )
+        seed_box = seed_xlimits if seed_xlimits is not None else xlimits
+        if seed_box is self.xlimits and use_middle:
+            starts = middle_picker_starts(
+                state.rng, xt, seed_box, cfg.n_start,
+                lambda n: self._lhs_in(n, seed_box),
+            )
+        else:
+            starts = self._lhs_in(cfg.n_start, seed_box)
+        return np.clip(starts, xlimits[:, 0], xlimits[:, 1])
+
+    def _fcstrs_traceable(self, fcstrs) -> bool:
+        """True when every user function constraint maps one (nx,) tensor
+        to a tensor of one value (probed once per function on the middle of
+        the box): those enter the optimizer as hard constraints. Anything
+        host-bound (numpy conversions, a python float out) would need the
+        derivative-free polish, which is not ported."""
+        key = tuple(fcstrs)
+        hit = self._fcstr_probe_cache.get(key)
+        if hit is not None:
+            return hit
+        probe = self._tensor(self.xlimits.mean(axis=1))
+        ok = True
+        for f in fcstrs:
+            try:
+                out = f(probe)
+                if not isinstance(out, torch.Tensor) or out.numel() != 1:
+                    ok = False
+                    break
+            except (TypeError, ValueError, RuntimeError, AttributeError,
+                    IndexError):
+                # e.g. numpy refusing a tensor that requires grad or lives
+                # on the GPU: a host-bound function
+                ok = False
+                break
+        if len(self._fcstr_probe_cache) >= 32:
+            self._fcstr_probe_cache.clear()
+        self._fcstr_probe_cache[key] = ok
+        return ok
+
+    def select_next_points(
+        self,
+        state: EgorState,
+        fcstrs: Sequence[Callable] = (),
+        init: bool = False,
+        xlimits: Optional[np.ndarray] = None,
+        seed_xlimits: Optional[np.ndarray] = None,
+    ):
+        """``seed_xlimits`` restricts only the multistart seed region (the
+        TREGO trust region, ref: trego.rs:34-76 LocalLhsMultiStarter) while
+        the criterion is still optimized within ``xlimits``; ``xlimits``
+        overrides the optimization box itself (mixint subspaces)."""
+        cfg = self.config
+        xlimits = self.xlimits if xlimits is None else xlimits
+        crit = _CRIT_NAME[cfg.infill_strategy]
+        cstrat = _CSTR_NAME[cfg.cstr_strategy]
+        qei = _QEI_NAME[cfg.q_infill_strategy]
+        n_cstr = cfg.n_cstr
+        fcstrs = tuple(fcstrs)
+        self._iter_dtype = egor_dtype(
+            self.device, state.x_data.shape[0] + cfg.q_points - 1)
+
+        if cfg.coego_n_coop > 1:
+            raise _not_ported("CoEGO (coego_n_coop > 1)",
+                              "CoEGO and the sigma-weight portfolio")
+        if os.environ.get("EGOR_USE_GP_VAR_PORTFOLIO"):
+            raise _not_ported(
+                "the sigma-weight portfolio (EGOR_USE_GP_VAR_PORTFOLIO)",
+                "CoEGO and the sigma-weight portfolio",
+            )
+        if fcstrs and not self._fcstrs_traceable(fcstrs):
+            raise _not_ported(
+                "a function constraint that is a host callback (it does "
+                "not map an (nx,) tensor to a one-value tensor) needs the "
+                "derivative-free polish, which",
+                "native Nelder-Mead polish for host-callback constraints",
+            )
+
+        surrogate_tols = self._tensor(state.cstr_tol[:n_cstr])
+        n_fcstr = len(fcstrs)
+        fcstr_tols = (
+            self._tensor(state.cstr_tol[n_cstr:n_cstr + n_fcstr])
+            if n_fcstr else None
+        )
+
+        x_dat: List[np.ndarray] = []
+        y_dat: List[np.ndarray] = []
+        infill_value = -np.inf
+
+        fmin = float(state.y_data[state.best_index, 0])
+        lo = self._tensor(xlimits[:, 0])
+        hi = self._tensor(xlimits[:, 1])
+        times = {"fit": 0.0, "cloud": 0.0, "infill": 0.0}
+
+        def clock():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter()
+
+        for i in range(cfg.q_points):
+            if x_dat:
+                xt = np.vstack([state.x_data] + x_dat)
+                yt = np.vstack([state.y_data] + y_dat)
+            else:
+                xt, yt = state.x_data, state.y_data
+
+            optimize_theta = (
+                (state.iter * cfg.q_points + i) % cfg.q_optmod == 0
+            )
+            t0 = clock()
+            models = self._train(state, xt, yt, optimize_theta)
+            t1 = clock()
+
+            # scaling cloud (ref: solver_computations.rs:132-193)
+            npts = min(100 * self.nx, 1000)
+            cloud = self._tensor(self._lhs(npts, LhsKind.MAXIMIN))
+            scale_infill, scale_cstr, scale_wb2 = compute_scaling(
+                models, cloud, fmin, surrogate_tols,
+                crit=crit, n_cstr=n_cstr, cstr_infill=cfg.cstr_infill,
+            )
+            scale_fcstr = None
+            if n_fcstr:
+                # scale of the function constraints: max |g| over the
+                # scaling cloud (ref: solver_computations.rs:181-189)
+                with torch.no_grad():
+                    gcloud = _eval_fcstrs(fcstrs, cloud)
+                scale_fcstr = torch.clamp(
+                    torch.max(torch.abs(gcloud), dim=1).values, min=1e-12
+                )
+            t2 = clock()
+
+            starts = self._tensor(
+                self._multistart_seeds(state, xt, xlimits, seed_xlimits)
+            )
+
+            # feasibility-first search when no feasible point exists yet
+            # (env-gated like the reference:
+            # EGOR_USE_MAX_PROBA_OF_FEASIBILITY, utils/mod.rs:22-48)
+            feasibility = state.feasibility or not os.environ.get(
+                "EGOR_USE_MAX_PROBA_OF_FEASIBILITY"
+            )
+            xk, fk, _ = optimize_infill(
+                models, starts, lo, hi, fmin, scale_infill, scale_wb2,
+                scale_cstr, surrogate_tols, 1.0, fcstr_tols, scale_fcstr,
+                crit=crit, cstr_strategy=cstrat, n_cstr=n_cstr,
+                cstr_infill=cfg.cstr_infill, feasibility=feasibility,
+                optimizer=_OPT_NAME[cfg.infill_optimizer],
+                fcstr_fns=fcstrs,
+            )
+            infill_value = float(-fk)
+
+            i_min = int(np.argmin(state.y_data[:, 0]))
+            yk = virtual_point(
+                models, xk, self._tensor(state.y_data[i_min]),
+                strategy=qei,
+            )
+            x_dat.append(xk.double().cpu().numpy()[None, :])
+            y_dat.append(yk.double().cpu().numpy()[None, :])
+            t3 = clock()
+            times["fit"] += t1 - t0
+            times["cloud"] += t2 - t1
+            times["infill"] += t3 - t2
+
+        self.last_times = times
+        return np.vstack(x_dat), np.vstack(y_dat), infill_value
+
+    # ------------------------------------------------------------------
+    # one EGO iteration (ref: ego_step, solver_impl.rs:398-555)
+    # ------------------------------------------------------------------
+
+    def ego_step(
+        self,
+        state: EgorState,
+        fobj: Callable[[np.ndarray], np.ndarray],
+        fcstrs: Sequence[Callable] = (),
+        xlimits: Optional[np.ndarray] = None,
+    ) -> EgorState:
+        t_start = time.perf_counter()
+        while True:
+            x_dat, _, infill_value = self.select_next_points(
+                state, fcstrs, init=(state.iter == 0), xlimits=xlimits
+            )
+            x_dat = self._cast(x_dat)
+            keep = [
+                i
+                for i in range(x_dat.shape[0])
+                if self._is_new(state.x_data, x_dat[i])
+            ]
+            if keep:
+                break
+            state.no_point_added_retries -= 1
+            if state.no_point_added_retries <= 0:
+                raise NoMorePointToAddError(
+                    "max retries without adding a point: converged"
+                )
+
+        x_new = x_dat[keep]
+        y_new = np.atleast_2d(np.asarray(fobj(x_new), dtype=float))
+        y_new = self._impute_failures(state, y_new)
+        c_new = self._eval_fcstrs(fcstrs, x_new)
+
+        offset = state.x_data.shape[0]
+        state.x_data = np.vstack([state.x_data, x_new])
+        state.y_data = np.vstack([state.y_data, y_new])
+        state.c_data = np.vstack([state.c_data, c_new])
+
+        state.prev_added = state.added
+        state.added += x_new.shape[0]
+        state.no_point_added_retries = MAX_POINT_ADDITION_RETRY
+
+        best = find_best_result_index_from(
+            state.best_index, offset, state.y_data, state.c_data,
+            state.cstr_tol,
+        )
+        state.prev_best_index = state.best_index
+        state.best_index = best
+        state.feasibility = state.feasibility or is_feasible(
+            state.y_data[best], state.c_data[best], state.cstr_tol
+        )
+        state.iter += 1
+        logger.info(
+            "iter %d: +%d point(s), total %d, best y=%.6g, infill=%.4g "
+            "(%.2fs)",
+            state.iter, x_new.shape[0], state.x_data.shape[0],
+            state.y_data[best, 0], infill_value,
+            time.perf_counter() - t_start,
+        )
+        return state
+
+    def _fcstr_polish(self, *args, **kwargs):
+        raise _not_ported(
+            "the derivative-free polish for host-callback function "
+            "constraints",
+            "native Nelder-Mead polish for host-callback constraints",
+        )
+
+    @staticmethod
+    def _impute_failures(state: EgorState, y_new: np.ndarray) -> np.ndarray:
+        """Failed objective evaluations (NaN/inf) would poison the GP
+        normalization; impute them with a worst-observed penalty per column
+        so the surrogate learns to avoid the region."""
+        return impute_failed_values(y_new, state.y_data)
+
+    @staticmethod
+    def _is_new(x_data: np.ndarray, x: np.ndarray) -> bool:
+        """L1 de-dup rule (ref: utils/misc.rs:44-53)."""
+        d = np.sum(np.abs(x_data - x[None, :]), axis=1)
+        return bool(np.all(d >= 100.0 * np.finfo(float).eps))
+
+    # ------------------------------------------------------------------
+    # ask-and-tell (ref: EgorService suggest, solver_impl.rs:56-101)
+    # ------------------------------------------------------------------
+
+    def suggest(self, x_doe: np.ndarray, y_doe: np.ndarray,
+                fcstrs: Sequence[Callable] = ()) -> np.ndarray:
+        cfg = self.config
+        x_doe = np.atleast_2d(np.asarray(x_doe, dtype=float))
+        y_doe = np.atleast_2d(np.asarray(y_doe, dtype=float))
+        c_data = self._eval_fcstrs(fcstrs, x_doe)
+        cstr_tol = cfg.resolved_cstr_tol(len(fcstrs))
+        best = find_best_result_index(y_doe, c_data, cstr_tol)
+        state = EgorState(
+            x_data=x_doe,
+            y_data=y_doe,
+            c_data=c_data,
+            cstr_tol=cstr_tol,
+            best_index=best,
+            rng=np.random.default_rng(cfg.seed),
+        )
+        x_dat, _, _ = self.select_next_points(state, fcstrs, init=True)
+        return self._cast(x_dat)

@@ -4,7 +4,10 @@
 - the (n_start + 1) restarts (user init + maximin-LHS seeds over the log10
   bounds, ref optimization.rs:26-71) each run the bounded L-BFGS on the
   likelihood with its analytic adjoint; egobox_tpu advances them as one
-  vmapped program, the port solves them one after the other;
+  vmapped program, and so does the port (lockstep lanes on a stack of
+  thetas) up to ``_LANES_MAX_POINTS`` points and ``_LANES_BYTES`` of
+  stacked factorizations; above, and on the residual-reuse and masked
+  paths, lane after lane;
 - ThetaTuning Fixed/Full/Partial maps to ``theta_fixed`` and an ``active``
   mask whose inactive bounds collapse to the init value;
 - ``mask`` fits the active rows of a padded design exactly;
@@ -37,6 +40,18 @@ from .likelihood import (
 GP_DEFAULT_N_START = 10
 GP_DEFAULT_THETA_INIT = 0.1
 GP_DEFAULT_THETA_BOUNDS = (1e-2, 1e1)
+#: the restarts of a fit run as lockstep lanes while one evaluation of all
+#: lanes and line-search trials stays below this many bytes, counted as 4
+#: live (lanes x trials, n, n) arrays (R, its factor, the factor's inverse
+#: and R^-1 at the peak of the adjoint; tools/prof_fit_lanes.py measures
+#: 0.72, 1.41 and 2.46 GiB where this counts 0.64, 1.44 and 2.56 GB)
+_LANES_BYTES = 8 * 2**30
+#: and while the design has at most this many points. On an H100
+#: (tools/prof_fit_lanes.py, matern52, d=10, float32) a 5-lane refit with 8
+#: trials is 3-6x faster in lockstep up to n = 1 000, 2.2x at 1 500 and 1.2x
+#: at 2 000, where the 2-lane, 4-iteration subfit of the n = 10 000 recipe
+#: is 2.3x slower (the library's batched Cholesky of a few large matrices)
+_LANES_MAX_POINTS = 1500
 
 
 class GpFitError(RuntimeError):
@@ -108,7 +123,15 @@ def fit_gp_core(
     tr: bool = False,
 ) -> GpModel:
     """One multistart MLE on a (possibly padded) design; the restarts are
-    the init (or init stack) plus ``n_start`` maximin-LHS seeds."""
+    the init (or init stack) plus ``n_start`` maximin-LHS seeds.
+
+    The restarts are solved at once, as lanes of the lockstep L-BFGS on a
+    stack of thetas (one evaluation takes every lane and every line-search
+    trial; the same iterates as lane after lane), when the objective is the
+    plain one (no residual reuse, no stochastic gradient), the design is
+    unmasked and within ``_LANES_MAX_POINTS`` points and ``_LANES_BYTES``
+    of stacked factorizations. Small designs are bound by launches, which
+    this divides by the number of lanes and trials."""
     dtype = x.dtype
     m = mask.to(dtype)
     n_obs = torch.sum(m)
@@ -153,6 +176,24 @@ def fit_gp_core(
             inits = t0[None, :]
         lo_l = torch.broadcast_to(lo, inits.shape)
         up_l = torch.broadcast_to(up, inits.shape)
+
+        n = x.shape[0]
+        stacked = inits.shape[0] * max(ls_batch, 1) * n * n * x.element_size()
+        if (not residual_api and not grad_probes
+                and n <= _LANES_MAX_POINTS and 4 * stacked <= _LANES_BYTES
+                and bool(torch.all(mask))):
+            neg_rlf_theta = make_neg_reduced_likelihood(
+                corr, trend, x_norm, y_norm, y_std, w_star, nugget)
+            lanes = minimize_lbfgsb(
+                lambda tt: neg_rlf_theta(10.0**tt), inits, lo_l, up_l,
+                max_iters=max_iters, ls_batch=ls_batch, final_grad=False,
+            )
+            # the first lowest objective wins, as below
+            theta_opt = 10.0 ** lanes.x[torch.argmin(lanes.fun)]
+            rlf, inner = reduced_likelihood(
+                corr, trend, x_norm, y_norm, y_std, theta_opt, w_star,
+                nugget, mask)
+            return model_at(theta_opt, rlf, inner)
 
         if residual_api:
             # value-only trials; the accepted trial's factorization feeds
@@ -303,8 +344,9 @@ def fit_gp(
     the polish through the residual-reuse L-BFGS.
 
     A non-finite likelihood is retried with a 100x larger nugget, twice;
-    then ``GpFitError`` is raised. ``mesh``, ``rank_warmstart``,
-    ``subsample_warmstart2`` and ``ls_batch > 0`` are not ported and raise.
+    then ``GpFitError`` is raised. ``ls_batch > 1`` takes the speculative
+    line search (optim/lbfgsb.py). ``mesh``, ``rank_warmstart`` and
+    ``subsample_warmstart2`` are not ported and raise.
     """
     for name, value in (("mesh", mesh), ("rank_warmstart", rank_warmstart),
                         ("subsample_warmstart2", subsample_warmstart2)):
@@ -312,11 +354,6 @@ def fit_gp(
             raise NotImplementedError(
                 f"egobox_torch: fit_gp({name}=...) is not ported"
             )
-    if ls_batch > 0:
-        raise NotImplementedError(
-            "egobox_torch: the batched line search (ls_batch > 0) is not "
-            "ported"
-        )
     x = as_tensor(x, device=device)
     dtype, device = x.dtype, x.device
     y = as_tensor(y, dtype=dtype, device=device).to(device)

@@ -122,15 +122,20 @@ def log_corr_cross(name: str, x1, x2, theta, weights=None):
     return _row_blocks(block, x1, x2, x1.shape[1])
 
 
-def _takes_k1(name: str, x1, x2, weights) -> bool:
+def _takes_k1(name: str, x1, x2, theta, weights) -> bool:
     """The K1 dispatch rule: large float32 L1-family Grams on CUDA with
-    identity weights."""
+    identity weights that autograd does not record. K1 has no backward, so
+    a Gram whose inputs require grad (an infill criterion differentiated
+    with respect to its trial points) takes the differentiable plain
+    formula. The likelihood never differentiates a Gram (it has its
+    analytic adjoint), so every Gram of a fit still launches K1."""
     return (
         name != "squared_exponential"
         and weights is None
         and x1.dtype == torch.float32
         and x1.shape[0] * x2.shape[0] * x1.shape[1] > _DENSE_BUDGET
         and x1.is_cuda
+        and not corr_kernel.needs_grad(x1, x2, theta)
     )
 
 
@@ -138,11 +143,12 @@ def corr_cross(name: str, x1, x2, theta, weights=None):
     """Cross-correlation (Gram) matrix r(x1, x2) of shape (n1, n2).
 
     sqexp takes the matmul path; large float32 L1-family Grams on CUDA
-    launch K1; the rest streams row blocks through the log-space formula.
+    launch K1 unless an input requires grad; the rest streams row blocks
+    through the (differentiable) log-space formula.
     """
     if name == "squared_exponential":
         return _sqexp_cross_fast(x1, x2, theta, weights)
-    if _takes_k1(name, x1, x2, weights):
+    if _takes_k1(name, x1, x2, theta, weights):
         return corr_kernel.corr_cross_tile(
             name, x1.contiguous(), x2.contiguous(), theta.contiguous()
         )
@@ -154,7 +160,7 @@ def corr_gram_row_sums(name: str, x, theta, weights=None):
     ``sum_j |R[i, j]|``. Where K1 builds the Gram the sums come from the
     kernel, which saves two more passes over R; elsewhere they are summed
     from R."""
-    if _takes_k1(name, x, x, weights):
+    if _takes_k1(name, x, x, theta, weights):
         xc = x.contiguous()
         # K1's diagonal is exactly 1: every term of r(x_i, x_i) is 0
         return corr_kernel.corr_cross_tile(name, xc, xc, theta.contiguous(),

@@ -8,7 +8,10 @@ analytic likelihood adjoint (port of egobox_tpu/gp/likelihood.py).
   likelihood, never an exception, so a multistart simply discards that
   theta (ref: algorithm.rs:893-896);
 - the gradient never differentiates through the n x n Cholesky: it is the
-  closed-form trace contraction evaluated from the kept factorization.
+  closed-form trace contraction evaluated from the kept factorization;
+- ``theta`` is one vector (dim,) or a stack (b, dim): the lanes and
+  line-search trials of a multistart on a small design go through one
+  evaluation, every (n, n) quantity carrying the leading axis.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.chol_kernel import PRECISIONS, cholesky_nan, panel_cholesky
-from .kernels import (_SQRT3, _SQRT5, _DENSE_BUDGET, _theta_w, corr_cross,
-                      corr_gram_row_sums)
+from .kernels import (_SQRT3, _SQRT5, _DENSE_BUDGET, _log_corr_terms,
+                      _takes_k1, corr_cross, corr_gram_row_sums)
 from .trends import trend_basis
 
 _LN10 = 2.302585092994046
@@ -72,16 +75,58 @@ class GpInnerParams(NamedTuple):
     ft_qr_r: torch.Tensor  # (p, p) R factor of qr(ft)
 
 
+#: element budget of one block of the L1-family Gram and adjoint of a theta
+#: stack: (thetas, n, n, nx) forward, (thetas, rows, n, nx) in the adjoint
+_STACK_BUDGET = 32_000_000
+
+
+def _gram_stack(corr, x_norm, thetas, w_star):
+    """R(x, x) for every row of ``thetas`` (b, dim): (b, n, n). sqexp takes
+    the matmul expansion; the L1 family launches K1 theta by theta where
+    ``_takes_k1`` says so (large float32 designs on the GPU) and broadcasts
+    the log-space formula over chunks of the stack elsewhere; KPLS weights
+    go theta by theta through ``corr_cross``."""
+    b = thetas.shape[0]
+    n, nx = x_norm.shape
+    if corr == "squared_exponential":
+        if w_star is None:
+            c = thetas**2
+        else:
+            c = torch.sum((thetas[:, None, :] * w_star) ** 2, dim=2)
+        a = x_norm[None] * torch.sqrt(c)[:, None, :]
+        a2 = torch.sum(a * a, dim=2)
+        sq = torch.clamp(a2[:, :, None] + a2[:, None, :] - 2.0 * (a @ a.mT),
+                         min=0.0)
+        return torch.exp(-0.5 * sq)
+    if w_star is not None or _takes_k1(corr, x_norm, x_norm, thetas[0], None):
+        return torch.stack([
+            corr_cross(corr, x_norm, x_norm, thetas[i], w_star)
+            for i in range(b)])
+    dabs = torch.abs(x_norm[:, None, :] - x_norm[None, :, :])[None]
+    step = max(1, _STACK_BUDGET // max(1, n * n * nx))
+    return torch.cat([
+        torch.exp(_log_corr_terms(corr, dabs,
+                                  thetas[s:s + step, None, None, :], True))
+        for s in range(0, b, step)])
+
+
 def _build_r(corr, x_norm, theta, w_star, nugget, mask):
-    """Assemble the regularized correlation matrix R.
+    """Assemble the regularized correlation matrix R, (n, n) for one theta
+    and (b, n, n) for a stack of them (no mask then).
 
     The jitter is ``nugget`` times the largest Gershgorin row sum of R
     (not differentiated): it keeps chol(R) well-posed for any theta while
     leaving well-conditioned fits (row sums ~ 1) untouched. With a mask the
     padded block is the identity. The diagonal is written in place on the
-    fresh Gram tensor. Without a mask the row sums come with the Gram
-    (from the K1 kernel where it builds it)."""
-    if mask is None:
+    fresh Gram tensor. For one theta and no mask the row sums come with the
+    Gram (from the K1 kernel where it builds it)."""
+    if theta.ndim == 2:
+        if mask is not None:
+            raise ValueError("a stack of thetas takes an unmasked design")
+        r = _gram_stack(corr, x_norm, theta, w_star)
+        torch.diagonal(r, dim1=-2, dim2=-1).fill_(1.0)  # exact unit diagonal
+        sums = torch.sum(torch.abs(r), dim=-1)
+    elif mask is None:
         r, sums = corr_gram_row_sums(corr, x_norm, theta, w_star)
     else:
         r = corr_cross(corr, x_norm, x_norm, theta, w_star)
@@ -89,8 +134,9 @@ def _build_r(corr, x_norm, theta, w_star, nugget, mask):
         r.mul_(m[:, None] * m[None, :])
         r.diagonal().fill_(1.0)  # exact unit diagonal
         sums = torch.sum(torch.abs(r), dim=1)
-    row_max = torch.max(sums).detach()
-    r.diagonal().add_(nugget * torch.clamp(row_max, min=1.0))
+    row_max = torch.amax(sums, dim=-1, keepdim=True).detach()
+    torch.diagonal(r, dim1=-2, dim2=-1).add_(
+        nugget * torch.clamp(row_max, min=1.0))
     return r
 
 
@@ -117,11 +163,14 @@ def reduced_likelihood(
 
     ``x_norm`` (n, nx), ``y_norm`` (n, 1) are normalized training data;
     ``mask`` (n,) bool marks active rows (None = all active). The likelihood
-    is the reference's ``-n (log10 sigma2 + log10 det(R)^{2/n})``.
+    is the reference's ``-n (log10 sigma2 + log10 det(R)^{2/n})``. With
+    ``theta`` of shape (b, dim) the likelihood is (b,) and every field of
+    the inner parameters carries the leading axis.
     """
     n = x_norm.shape[0]
     dtype = x_norm.dtype
     r = _build_r(corr, x_norm, theta, w_star, nugget, mask)
+    lead = r.shape[:-2]
 
     fx = trend_basis(trend, x_norm)
     if mask is not None:
@@ -134,26 +183,27 @@ def reduced_likelihood(
 
     l_chol = _cholesky(r)
     del r
-    ft = _solve_lower(l_chol, fx)
+    ft = _solve_lower(l_chol, fx.expand(lead + fx.shape))
     # GLS normal equations via the (p, p) Gram of Ft: the R factor of
     # qr(Ft) up to signs
-    c = cholesky_nan(ft.T @ ft)  # lower; R_qr = c.T
-    r_qr = c.T
+    c = cholesky_nan(ft.mT @ ft)  # lower; R_qr = c.mT
 
     # ill-conditioning guard via the R-factor diagonal (ref SVD cond
     # check, algorithm.rs:1009-1027)
-    dq = torch.abs(torch.diagonal(c))
-    cond_ok = (torch.min(dq) / torch.clamp(torch.max(dq), min=1e-300)) > 1e-10
+    dq = torch.abs(torch.diagonal(c, dim1=-2, dim2=-1))
+    cond_ok = (torch.amin(dq, dim=-1)
+               / torch.clamp(torch.amax(dq, dim=-1), min=1e-300)) > 1e-10
 
-    yt = _solve_lower(l_chol, y_norm)
-    fty = ft.T @ yt
-    beta = _solve_upper(c.T, _solve_lower(c, fty))
+    yt = _solve_lower(l_chol, y_norm.expand(lead + y_norm.shape))
+    fty = ft.mT @ yt
+    beta = _solve_upper(c.mT, _solve_lower(c, fty))
     rho = yt - ft @ beta
-    gamma = _solve_upper(l_chol.T, rho)
+    gamma = _solve_upper(l_chol.mT, rho)
 
     # det(R) = prod diag(L)^2; padded diagonal entries are 1 -> log 0
-    logdet = 2.0 * torch.sum(torch.log10(torch.diagonal(l_chol))) / n_obs
-    sigma2_norm = torch.sum(rho**2) / n_obs
+    logdet = 2.0 * torch.sum(
+        torch.log10(torch.diagonal(l_chol, dim1=-2, dim2=-1)), dim=-1) / n_obs
+    sigma2_norm = torch.sum(rho**2, dim=(-2, -1)) / n_obs
     rlf = -n_obs * (torch.log10(sigma2_norm) + logdet)
     rlf = torch.where(torch.isfinite(rlf) & cond_ok, rlf,
                       torch.full_like(rlf, -float("inf")))
@@ -164,7 +214,7 @@ def reduced_likelihood(
         gamma=gamma,
         r_chol=l_chol,
         ft=ft,
-        ft_qr_r=r_qr,
+        ft_qr_r=c.mT,
     )
     return rlf, inner
 
@@ -172,16 +222,17 @@ def reduced_likelihood(
 def _sqexp_dphi(c, x_norm, theta, w_star):
     """Closed-form trace contraction for the squared-exponential kernel:
     phi(theta) = sum C o log r = -1/2 sum_k c_k(theta) S_k with
-    S_k = sum_ij C_ij (x_ik - x_jk)^2, as three matmul-shaped reductions."""
-    u = torch.sum(c, dim=1)  # C 1
-    v = torch.sum(c, dim=0)  # 1^T C
+    S_k = sum_ij C_ij (x_ik - x_jk)^2, as three matmul-shaped reductions
+    (c (..., n, n), theta (..., dim))."""
+    u = torch.sum(c, dim=-1)  # C 1
+    v = torch.sum(c, dim=-2)  # 1^T C
     x2 = x_norm * x_norm
     w = c @ x_norm
-    s = u @ x2 + v @ x2 - 2.0 * torch.sum(x_norm * w, dim=0)  # (nx,)
+    s = u @ x2 + v @ x2 - 2.0 * torch.sum(x_norm * w, dim=-2)  # (..., nx)
     if w_star is None:
         return -theta * s
     # c_k = sum_l theta_l^2 w_kl^2 -> dphi/dtheta_l = -theta_l sum_k w_kl^2 S_k
-    return -theta * ((w_star**2).T @ s)
+    return -theta * (s @ (w_star**2))
 
 
 def _dlog_term(name: str, u: torch.Tensor) -> torch.Tensor:
@@ -198,25 +249,33 @@ def _dlog_term(name: str, u: torch.Tensor) -> torch.Tensor:
 
 def _l1_dphi(name, c, x_norm, theta, w_star):
     """sum_ij C_ij d log r_ij / d theta for absexp / Matern, in closed form
-    per row block: no (n, n, nx) tensor is ever held.
+    per row block: no (n, n, nx) tensor is ever held. ``c`` (..., n, n) and
+    ``theta`` (..., dim) share their leading axis.
 
     With u_jl = |d_j| theta_l |w_jl| (u_j = |d_j| theta_j without KPLS),
     d log r / d theta_l = sum_j term'(u_jl) |d_j| |w_jl|."""
     n, nx = x_norm.shape
-    thw = _theta_w(name, theta, w_star)
     per_pair = nx * (1 if w_star is None else w_star.shape[1])
-    rows = max(1, _DENSE_BUDGET // max(1, n * per_pair))
+    if theta.ndim == 1:
+        rows = max(1, _DENSE_BUDGET // max(1, n * per_pair))
+    else:
+        rows = max(1, _STACK_BUDGET // max(1, theta.shape[0] * n * per_pair))
+    if w_star is None:
+        thw = theta[..., None, None, :]  # over (rows, n, nx)
+    else:
+        # over (rows, n, nx, ncomp)
+        thw = (theta[..., None, :] * torch.abs(w_star))[..., None, None, :, :]
     out = torch.zeros_like(theta)
     for s in range(0, n, rows):
         dabs = torch.abs(x_norm[s:s + rows, None, :] - x_norm[None, :, :])
-        cb = c[s:s + rows]
+        cb = c[..., s:s + rows, :]
         if w_star is None:
             t = _dlog_term(name, dabs * thw) * dabs
-            out = out + torch.einsum("ij,ijk->k", cb, t)
+            out = out + torch.einsum("...ij,...ijk->...k", cb, t)
         else:
             dabs = dabs[..., None]
             t = _dlog_term(name, dabs * thw) * dabs
-            out = out + torch.einsum("ij,ijkl,kl->l", cb, t,
+            out = out + torch.einsum("...ij,...ijkl,kl->...l", cb, t,
                                      torch.abs(w_star))
     return out
 
@@ -277,10 +336,13 @@ def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
     C = (R^-1 - gamma gamma^T / s2) o R.
 
     ``stoch_probes > 0`` routes the squared-exponential kernel to the
-    Hutchinson estimate (kill-switch EGOBOX_NO_STOCH_GRAD=1); everything
-    else takes the exact R^-1 = L^-T L^-1."""
+    Hutchinson estimate (kill-switch EGOBOX_NO_STOCH_GRAD=1; one theta
+    only); everything else takes the exact R^-1 = L^-T L^-1, for one theta
+    or a stack (theta (b, dim), L (b, n, n), gamma (b, n, 1), sigma2
+    (b,))."""
     if (
         stoch_probes
+        and theta.ndim == 1
         and corr == "squared_exponential"
         and os.environ.get("EGOBOX_NO_STOCH_GRAD") != "1"
     ):
@@ -289,11 +351,12 @@ def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
         )
     n = x_norm.shape[0]
     eye = torch.eye(n, dtype=x_norm.dtype, device=x_norm.device)
-    li = _solve_lower(l_chol, eye)
+    li = _solve_lower(l_chol, eye.expand(l_chol.shape))
     del eye
-    c = li.T @ li  # R^-1
+    c = li.mT @ li  # R^-1
     del li
-    c.sub_(gamma @ gamma.T / torch.clamp(sigma2_norm, min=1e-300))
+    c.sub_(gamma @ gamma.mT
+           / torch.clamp(sigma2_norm, min=1e-300)[..., None, None])
     c.mul_(_build_r(corr, x_norm, theta, w_star, nugget, mask))
     if mask is not None:
         m = mask.to(x_norm.dtype)
@@ -306,7 +369,7 @@ def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
 class _NegRlf(torch.autograd.Function):
     """-rlf(theta) with the analytic adjoint: forward keeps (theta, L,
     gamma, sigma2_norm), backward is the trace contraction; autograd never
-    sees the Cholesky."""
+    sees the Cholesky. theta (dim,) -> a scalar, theta (b, dim) -> (b,)."""
 
     @staticmethod
     def forward(ctx, theta, problem):
@@ -328,7 +391,7 @@ class _NegRlf(torch.autograd.Function):
             p["corr"], p["x_norm"], p["w_star"], p["nugget"], p["mask"],
             theta, l_chol, gamma, sigma2_norm, p["stoch_probes"],
         )
-        grad = g * dphi / _LN10
+        grad = g[..., None] * dphi / _LN10
         return torch.where(torch.isfinite(grad), grad,
                            torch.zeros_like(grad)), None
 
@@ -351,13 +414,20 @@ def make_neg_reduced_likelihood(
         d/dtheta [ n ln s2 + ln det R ]
             = sum_ij [ (R^-1 - a a^T / s2) o R ]_ij  d log r_ij / d theta
 
-    with a = R^-1 (y - F beta) (== gamma)."""
+    with a = R^-1 (y - F beta) (== gamma). ``f`` takes one theta (dim,) or
+    any stack (..., dim) -> (...): the lanes of a lockstep multistart and
+    all their line-search trials in one evaluation (unmasked designs the
+    library Cholesky takes; the stochastic gradient is one-theta only)."""
     problem = dict(corr=corr, trend=trend, x_norm=x_norm, y_norm=y_norm,
                    y_std=y_std, w_star=w_star, nugget=nugget, mask=mask,
                    stoch_probes=stoch_probes)
 
     def neg_rlf(theta):
-        return _NegRlf.apply(theta, problem)
+        if theta.ndim <= 2:
+            return _NegRlf.apply(theta, problem)
+        lead = theta.shape[:-1]
+        out = _NegRlf.apply(theta.reshape(-1, theta.shape[-1]), problem)
+        return out.reshape(lead)
 
     return neg_rlf
 

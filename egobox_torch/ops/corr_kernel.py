@@ -42,6 +42,11 @@ launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 
 
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record an operation on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _log_terms(name: str, u: torch.Tensor) -> torch.Tensor:
     """Per-feature log r contribution, summed over the last axis."""
     if name == "absolute_exponential":
@@ -94,6 +99,12 @@ def corr_cross_tile(name: str, x1: torch.Tensor, x2: torch.Tensor,
     tensors = (x1, x2, theta_w)
     if all(t.device.type == "cpu" for t in tensors):
         return corr_cross_plain(name, x1, x2, theta_w, row_sums)
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            "corr_cross_tile: the CUDA kernel has no backward and an input "
+            "requires grad; differentiate the plain formula instead "
+            "(gp.kernels.corr_cross dispatches it)"
+        )
     if not all(t.is_cuda and t.device == x1.device for t in tensors):
         raise ValueError("corr_cross_tile: x1, x2, theta_w must share one "
                          "CUDA device (or all lie on the CPU)")

@@ -1,5 +1,7 @@
 """Box-constrained quasi-Newton solvers."""
 
-from .lbfgsb import LbfgsbResult, minimize_lbfgsb, minimize_tr
+from .lbfgsb import (LbfgsbResult, minimize_lbfgsb, minimize_tr,
+                     multistart_minimize)
 
-__all__ = ["LbfgsbResult", "minimize_lbfgsb", "minimize_tr"]
+__all__ = ["LbfgsbResult", "minimize_lbfgsb", "minimize_tr",
+           "multistart_minimize"]

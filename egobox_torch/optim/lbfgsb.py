@@ -2,10 +2,21 @@
 variant (port of egobox_tpu/optim/lbfgsb.py).
 
 egobox_tpu runs each solver as one ``lax.while_loop`` vmapped over
-multistart lanes; a finished lane keeps its state while the others run. The
-port solves one lane per call and the caller loops over lanes, which gives
-the same iterates. Vectors stay tensors on the objective's device; the
-scalar decisions (acceptance, convergence) are taken on the host.
+multistart lanes; a finished lane keeps its state while the others run.
+``minimize_lbfgsb`` has both forms:
+
+- one lane (``x0`` of shape (d,)): vectors stay tensors on the objective's
+  device, the scalar decisions (acceptance, convergence) are taken on the
+  host. The n = 10 000 fit uses it with ``fun_and_res``/``grad_from_res``;
+- lockstep lanes (``x0`` of shape (k, d)): every per-lane quantity (history,
+  rho, valid, head, done, iteration count) is a tensor with a leading lane
+  axis, all lanes advance in one set of launches, a finished lane keeps its
+  state, and the host reads one pair of flags per iteration.
+
+``ls_batch > 1`` is the speculative line search of egobox_tpu: all
+``ls_batch`` backtracking steps are evaluated at once (in the lockstep form
+as one call of the objective on k x ls_batch points) and the first
+Armijo-passing one is taken, the lowest when none passes.
 
 Limited-memory two-loop recursion over a circular (s, y) history, gradient
 projection onto the box, NaN/inf objective values treated as +inf so the
@@ -125,13 +136,27 @@ def minimize_lbfgsb(
     call ``fun_and_res(x) -> (f, res)`` and the accepted trial's residuals
     feed ``grad_from_res(x, res) -> g``. ``final_grad=False`` skips the
     gradient on the last allowed iteration (its value is discarded).
-    The speculative batched line search (``ls_batch > 0``) is not ported.
+
+    ``ls_batch > 1``: the speculative line search. In this one-lane form the
+    ``ls_batch`` trials of a round are evaluated one after the other (the
+    same selection, no batched forward).
+
+    Lockstep lanes: with ``x0`` of shape (k, d), ``lower``/``upper`` of shape
+    (d,) or (k, d) and ``fun`` mapping (k, d) -> (k,) and, for
+    ``ls_batch > 1``, (k, ls_batch, d) -> (k, ls_batch), with independent
+    lanes (the gradient of ``fun(x).sum()`` is each lane's gradient), all
+    lanes are solved at once; ``x``, ``fun``, ``n_iters`` and ``converged``
+    of the result then carry the lane axis. The residual interface is
+    one-lane only.
     """
-    if ls_batch > 0:
-        raise NotImplementedError(
-            "egobox_torch: the batched line search (ls_batch > 0) is not "
-            "ported"
-        )
+    if x0.ndim == 2:
+        if fun_and_res is not None or grad_from_res is not None:
+            raise ValueError(
+                "minimize_lbfgsb: fun_and_res/grad_from_res take one lane; "
+                "lockstep lanes (x0 of shape (k, d)) need a batched fun"
+            )
+        return _minimize_lanes(fun, x0, lower, upper, max_iters, history,
+                               max_ls, gtol, xtol, ls_batch, final_grad)
     c1 = 1e-4
 
     def clip(x):
@@ -157,23 +182,48 @@ def minimize_lbfgsb(
     g = _finite_or_zero(g)
     hist = _History(history, x.shape[0], x)
 
-    it, done = 0, False
-    while it < max_iters and not done:
-        direction = _descent_direction(hist, g)
-        f_val = float(f)
+    def trial(alpha):
+        x_new = clip(x + alpha * direction)
+        f_raw, res_new = fun_and_res(x_new)
+        return x_new, _sanitize(f_raw), res_new
+
+    def search_sequential():
         # Armijo backtracking along the projected path clip(x + a d); the
         # last trial is carried even when none passes
         alpha = 1.0
         for _ in range(max_ls):
-            x_new = clip(x + alpha * direction)
-            f_raw, res_new = fun_and_res(x_new)
-            f_new = _sanitize(f_raw)
+            x_new, f_new, res_new = trial(alpha)
             dx = x_new - x
             alpha *= 0.5
             ok = float(f_new) <= f_val + c1 * float(torch.dot(g, dx))
             stuck = float(torch.max(torch.abs(dx))) <= xtol
             if ok or stuck:
                 break
+        return x_new, f_new, res_new
+
+    def search_speculative():
+        # rounds of ls_batch halvings; a deeper round only while no trial
+        # of the last one improves, down to the sequential 2^-max_ls reach
+        scale, n_rounds = 1.0, max(1, -(-max_ls // ls_batch))
+        for r in range(n_rounds):
+            trials = [trial(scale * 0.5**j) for j in range(ls_batch)]
+            fs = [float(t[1]) for t in trials]
+            if min(fs) < f_val:
+                break
+            scale *= 0.5**ls_batch
+        armijo = [
+            fj <= f_val + c1 * float(torch.dot(g, t[0] - x))
+            for fj, t in zip(fs, trials)
+        ]
+        idx = armijo.index(True) if any(armijo) else fs.index(min(fs))
+        return trials[idx]
+
+    search = search_speculative if ls_batch > 1 else search_sequential
+    it, done = 0, False
+    while it < max_iters and not done:
+        direction = _descent_direction(hist, g)
+        f_val = float(f)
+        x_new, f_new, res_new = search()
         improved = float(f_new) < f_val
         if not improved:
             x_new, f_new, res_new = x, f, res
@@ -193,6 +243,185 @@ def minimize_lbfgsb(
         x, f, res, g = x_new, f_new, res_new, g_new
         it += 1
     return LbfgsbResult(x=x, fun=f, n_iters=it, converged=done, res=res)
+
+
+def _two_loop_lanes(g, s_hist, y_hist, rho, valid, head):
+    """H @ g for every lane: the two-loop recursion over each lane's
+    circular history, newest first, invalid slots masked out."""
+    k, h, d = s_hist.shape
+    order = (head[:, None] - 1 - torch.arange(h, device=g.device)) % h
+    idx = order[:, :, None].expand(k, h, d)
+    s_o = torch.gather(s_hist, 1, idx)  # (k, h, d), newest first
+    y_o = torch.gather(y_hist, 1, idx)
+    rho_o = torch.gather(rho, 1, order)
+    valid_o = torch.gather(valid, 1, order)
+    zero = torch.zeros_like(rho_o[:, 0])
+    q = g
+    alphas = []
+    for i in range(h):
+        a = torch.where(valid_o[:, i],
+                        rho_o[:, i] * torch.sum(s_o[:, i] * q, dim=1), zero)
+        q = q - a[:, None] * y_o[:, i]
+        alphas.append(a)
+    sy = torch.sum(s_o[:, 0] * y_o[:, 0], dim=1)
+    yy = torch.sum(y_o[:, 0] * y_o[:, 0], dim=1)
+    ok = valid_o[:, 0] & (yy > 0)
+    gamma = torch.where(ok, sy / torch.where(ok, yy, torch.ones_like(yy)),
+                        torch.ones_like(yy))
+    r = gamma[:, None] * q
+    for i in reversed(range(h)):
+        b = torch.where(valid_o[:, i],
+                        rho_o[:, i] * torch.sum(y_o[:, i] * r, dim=1), zero)
+        r = r + torch.where(valid_o[:, i], alphas[i] - b, zero)[:, None] \
+            * s_o[:, i]
+    return r
+
+
+def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
+                    xtol, ls_batch, final_grad) -> LbfgsbResult:
+    """The lockstep form of ``minimize_lbfgsb``: the state of egobox_tpu's
+    vmapped ``lax.while_loop`` (lbfgsb.py:261-304) as tensors with a leading
+    lane axis. Every lane computes every iteration; the updates of a lane
+    that is done (or out of iterations) are masked out, so it keeps its
+    state while the others run.
+
+    Host reads: one pair of flags per iteration (is any lane active, does
+    any lane need a deeper line-search round), one more per deeper round,
+    and with the sequential search (``ls_batch <= 1``) one per trial."""
+    c1 = 1e-4
+    k, d = x0.shape
+    dev = x0.device
+    lo = torch.broadcast_to(lower, (k, d))
+    up = torch.broadcast_to(upper, (k, d))
+
+    def value_and_grad(x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            f = fun(xx)
+            (g,) = torch.autograd.grad(f.sum(), xx)
+        return f.detach(), g
+
+    def value(x):
+        with torch.no_grad():
+            return _sanitize(fun(x))
+
+    x = torch.clamp(x0.detach(), lo, up)
+    f, g = value_and_grad(x)
+    f = _sanitize(f)
+    g = _finite_or_zero(g)
+    s_hist = torch.zeros((k, history, d), dtype=x.dtype, device=dev)
+    y_hist = torch.zeros_like(s_hist)
+    rho = torch.zeros((k, history), dtype=x.dtype, device=dev)
+    valid = torch.zeros((k, history), dtype=torch.bool, device=dev)
+    head = torch.zeros((k,), dtype=torch.long, device=dev)
+    it = torch.zeros((k,), dtype=torch.long, device=dev)
+    done = torch.zeros((k,), dtype=torch.bool, device=dev)
+    lanes = torch.arange(k, device=dev)
+    if ls_batch > 1:
+        alphas = 0.5 ** torch.arange(ls_batch, dtype=x.dtype, device=dev)
+        n_rounds = max(1, -(-max_ls // ls_batch))
+
+    def trial_batch(scale):
+        step = (scale[:, None] * alphas[None, :])[:, :, None]
+        xs = torch.clamp(x[:, None, :] + step * direction[:, None, :],
+                         lo[:, None, :], up[:, None, :])
+        return xs, value(xs)
+
+    for n in range(max_iters):
+        active = ~done  # every lane has run n < max_iters iterations
+        direction = -_two_loop_lanes(g, s_hist, y_hist, rho, valid, head)
+        descent = torch.sum(direction * g, dim=1) < 0
+        direction = torch.where(descent[:, None], direction, -g)
+
+        if ls_batch > 1:
+            scale = torch.ones((k,), dtype=x.dtype, device=dev)
+            xs, fs = trial_batch(scale)
+            deeper = active & (torch.min(fs, dim=1).values >= f)
+            any_active, any_deeper = torch.stack(
+                [active.any(), deeper.any()]).tolist()
+            if not any_active:
+                break
+            r = 1
+            while any_deeper and r < n_rounds:
+                # only the lanes with no improving trial move on
+                scale = torch.where(deeper, scale * 0.5**ls_batch, scale)
+                xs_n, fs_n = trial_batch(scale)
+                xs = torch.where(deeper[:, None, None], xs_n, xs)
+                fs = torch.where(deeper[:, None], fs_n, fs)
+                r += 1
+                deeper = deeper & (torch.min(fs, dim=1).values >= f)
+                any_deeper = bool(deeper.any())
+            dxs = xs - x[:, None, :]
+            armijo = fs <= f[:, None] + c1 * torch.sum(
+                dxs * g[:, None, :], dim=2)
+            idx = torch.where(armijo.any(dim=1),
+                              torch.argmax(armijo.to(torch.int8), dim=1),
+                              torch.argmin(fs, dim=1))
+            x_new, f_new = xs[lanes, idx], fs[lanes, idx]
+        else:
+            if not bool(active.any()):
+                break
+            # per-lane Armijo backtracking: a lane stops at its first
+            # passing (or stuck) trial and keeps it; the last trial is
+            # carried even when none passes
+            searching = active.clone()
+            x_new, f_new = x, f
+            alpha = 1.0
+            for _ in range(max_ls):
+                x_t = torch.clamp(x + alpha * direction, lo, up)
+                f_t = value(x_t)
+                dx = x_t - x
+                x_new = torch.where(searching[:, None], x_t, x_new)
+                f_new = torch.where(searching, f_t, f_new)
+                ok = f_t <= f + c1 * torch.sum(g * dx, dim=1)
+                stuck = torch.max(torch.abs(dx), dim=1).values <= xtol
+                searching = searching & ~(ok | stuck)
+                alpha *= 0.5
+                if not bool(searching.any()):
+                    break
+
+        improved = (f_new < f) & active
+        x_new = torch.where(improved[:, None], x_new, x)
+        f_new = torch.where(improved, f_new, f)
+        if final_grad or (n + 1) < max_iters:
+            g_at = _finite_or_zero(value_and_grad(x_new)[1])
+            g_new = torch.where(improved[:, None], g_at, g)
+        else:
+            g_new = g
+
+        s = x_new - x
+        y = g_new - g
+        sy = torch.sum(s * y, dim=1)
+        good = improved & (sy > 1e-10 * torch.linalg.norm(s, dim=1)
+                           * torch.linalg.norm(y, dim=1))
+        slot = torch.zeros_like(valid)
+        slot[lanes, head] = True
+        slot = slot & good[:, None]
+        s_hist = torch.where(slot[:, :, None], s[:, None, :], s_hist)
+        y_hist = torch.where(slot[:, :, None], y[:, None, :], y_hist)
+        rho_new = 1.0 / torch.where(sy != 0, sy, torch.ones_like(sy))
+        rho = torch.where(slot, rho_new[:, None], rho)
+        valid = valid | slot
+        head = torch.where(good, (head + 1) % history, head)
+
+        pg = torch.where((x_new <= lo) & (g_new > 0),
+                         torch.zeros_like(g_new), g_new)
+        pg = torch.where((x_new >= up) & (pg < 0), torch.zeros_like(pg), pg)
+        converged = torch.max(torch.abs(pg), dim=1).values <= gtol
+        done = torch.where(active, ~improved | converged, done)
+        it = it + active.to(it.dtype)
+        x, f, g = x_new, f_new, g_new
+    return LbfgsbResult(x=x, fun=f, n_iters=it, converged=done)
+
+
+def multistart_minimize(fun, x0s, lower, upper, **kw):
+    """Multistart over lockstep lanes: ``x0s`` (k, d) -> the best
+    ``(x, f)`` across starts and the per-lane result (port of
+    egobox_tpu/optim/lbfgsb.py ``multistart_minimize``; ``fun`` as the
+    lockstep form of ``minimize_lbfgsb`` takes it)."""
+    res = minimize_lbfgsb(fun, x0s, lower, upper, **kw)
+    best = torch.argmin(res.fun)
+    return res.x[best], res.fun[best], res
 
 
 def minimize_tr(

@@ -10,6 +10,8 @@ Tolerances: K1 atol 2e-6 (tests/test_pallas.py's target), K2 atol 5e-5 on a
 well-conditioned SPD panel (tests/test_pallas_chol.py's target).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -266,3 +268,172 @@ def test_fit_goes_through_both_kernels(dev, monkeypatch):
                    corr="matern52", n_start=1, max_iters=5)
     assert np.isfinite(float(m.likelihood))
     assert ck.launches > before[0] and chk.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the Egor loop's pieces on the card
+# ---------------------------------------------------------------------------
+
+
+def test_k1_refuses_inputs_that_require_grad(dev):
+    """K1 has no backward: the wrapper raises on an input that requires
+    grad, ``corr_cross`` sends such a Gram (1000 x 1003, d=10: above the
+    dispatch threshold) to the plain formula and its gradient agrees with
+    the plain version's; without grad the same call launches K1."""
+    x1, x2, th = _k1_inputs(dev, 1000, 1003, 10, 21)
+    x1.requires_grad_(True)
+    weight = torch.randn((1000, 1003), device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ck.corr_cross_tile("matern52", x1, x2, th)
+    before = ck.launches
+    r = tk.corr_cross("matern52", x1, x2, th)
+    assert r.grad_fn is not None and ck.launches == before
+    (got,) = torch.autograd.grad((r * weight).sum(), x1)
+    (ref,) = torch.autograd.grad(
+        (ck.corr_cross_plain("matern52", x1, x2, th) * weight).sum(), x1)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+    with torch.no_grad():
+        tk.corr_cross("matern52", x1, x2, th)
+    assert ck.launches == before + 1
+    # theta that requires grad is refused the same way
+    th.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ck.corr_cross_tile("matern52", x1.detach(), x2, th)
+
+
+@pytest.mark.parametrize("ls_batch", [0, 8])
+def test_lockstep_lbfgs_on_the_card_matches_cpu(dev, ls_batch):
+    """A bounded quadratic whose minimum lies on faces of the box, over 6
+    lanes in float32 on the card against float64 on the CPU: x within 1e-3
+    of the box width, every lane converged on both sides."""
+    from egobox_torch.optim import minimize_lbfgsb
+
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((4, 4))
+    q = a @ a.T + 0.5 * np.eye(4)
+    c = np.array([3.0, -2.5, 0.2, 4.0])
+    x0 = rng.uniform(-1.5, 1.5, (6, 4))
+    lo, up = np.full(4, -1.0), np.array([0.5, 2.0, 2.0, 0.8])
+
+    def run(dtype, device):
+        qt = torch.tensor(q, dtype=dtype, device=device)
+        ct = torch.tensor(c, dtype=dtype, device=device)
+
+        def quad(x):
+            r = x - ct
+            return 0.5 * torch.sum((r @ qt) * r, dim=-1)
+
+        return minimize_lbfgsb(
+            quad, torch.tensor(x0, dtype=dtype, device=device),
+            torch.tensor(lo, dtype=dtype, device=device),
+            torch.tensor(up, dtype=dtype, device=device), max_iters=100,
+            ls_batch=ls_batch)
+
+    ref = run(torch.float64, "cpu")
+    got = run(torch.float32, dev)
+    assert got.x.is_cuda and got.n_iters.is_cuda
+    err = np.abs(got.x.cpu().double().numpy() - ref.x.numpy()) / (up - lo)
+    assert err.max() <= 1e-3, err
+    assert bool(ref.converged.all()) and bool(got.converged.all())
+
+
+def test_optimize_infill_on_the_card_matches_cpu(dev):
+    """The same surrogates (fitted on the CPU in float64, nugget 1e-4), the
+    same starts: the WB2 infill in float32 on the card against float64 on
+    the CPU, x within 1e-3 of the box width; the constrained path runs and
+    returns a point inside the box."""
+    from egobox_torch.ego import infill_optim as tio
+    from egobox_torch.ego import surrogates as tsur
+
+    rng = np.random.default_rng(4)
+    xl = np.array([[-2.0, 2.0], [-1.0, 3.0]])
+    x = rng.uniform(xl[:, 0], xl[:, 1], (20, 2))
+    y = np.stack([((x - [0.3, 1.1]) ** 2).sum(1), x[:, 0] - 1.0], axis=1)
+    models = tsur.train_gp_surrogates(
+        torch.tensor(x), torch.tensor(y), None,
+        tsur.GpSpec(n_start=2, max_iters=10, nugget=1e-4), seed=1)
+    on_card = dataclasses.replace(models, **{
+        f.name: (v.to(dev) if v.dtype == torch.bool
+                 else v.to(device=dev, dtype=torch.float32))
+        for f in dataclasses.fields(models)
+        if isinstance(v := getattr(models, f.name), torch.Tensor)})
+    starts = rng.uniform(xl[:, 0], xl[:, 1], (6, 2))
+    fmin = float(y[:, 0].min())
+
+    def run(m, dtype, device, **kw):
+        def t(a):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+        return tio.optimize_infill(
+            m, t(starts), t(xl[:, 0]), t(xl[:, 1]), fmin, 1.0, 1.0,
+            t([1.0]), t([1e-3]), crit="WB2", **kw)
+
+    objective_only = dataclasses.replace(models, **{
+        f.name: getattr(models, f.name)[:1]
+        for f in dataclasses.fields(models)
+        if isinstance(getattr(models, f.name), torch.Tensor)})
+    card_only = dataclasses.replace(on_card, **{
+        f.name: getattr(on_card, f.name)[:1]
+        for f in dataclasses.fields(on_card)
+        if isinstance(getattr(on_card, f.name), torch.Tensor)})
+    ref = run(objective_only, torch.float64, "cpu")
+    got = run(card_only, torch.float32, dev)
+    assert got[0].is_cuda
+    err = np.abs(got[0].cpu().double().numpy() - ref[0].numpy()) \
+        / (xl[:, 1] - xl[:, 0])
+    assert err.max() <= 1e-3, (got[0], ref[0])
+    ref_c = run(models, torch.float64, "cpu", n_cstr=1)
+    got_c = run(on_card, torch.float32, dev, n_cstr=1)
+    err = np.abs(got_c[0].cpu().double().numpy() - ref_c[0].numpy()) \
+        / (xl[:, 1] - xl[:, 0])
+    assert err.max() <= 1e-3, (got_c[0], ref_c[0])
+    assert float(got_c[0][0]) <= 1.0 + 1e-3  # the constraint x0 <= 1
+
+
+def test_egor_runs_on_the_card_by_default(dev):
+    """numpy in, no device: the surrogates live on the card, in float64
+    for a design this small; ``suggest`` the same."""
+    import egobox_torch as egx
+
+    def xsinx(x):
+        x = np.atleast_2d(x)
+        return ((x - 3.5) * np.sin((x - 3.5) / np.pi)).reshape(-1, 1)
+
+    egor = egx.Egor([[0.0, 25.0]], seed=42)
+    res = egor.minimize(xsinx, max_iters=3)
+    models = egor.solver.last_models
+    assert models.r_chol.is_cuda and models.r_chol.dtype == torch.float64
+    assert res.x_doe.shape == (8, 1) and isinstance(res.x_opt, np.ndarray)
+    x = egor.suggest(res.x_doe, res.y_doe)
+    assert x.shape == (1, 1) and 0.0 <= x[0, 0] <= 25.0
+    assert egx.config.egor_dtype(dev, 1000) == torch.float64
+    assert egx.config.egor_dtype(dev, 4096) == torch.float32
+
+
+def test_egor_in_float32_launches_k1(dev):
+    """``dtype=torch.float32`` on a 900-point d=10 Matern 5/2 design
+    (900^2 x 10 > 8e6): the refit's Grams are K1's and the surrogates are
+    float32; the default (float64) launches none."""
+    import egobox_torch as egx
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-2.0, 2.0, (900, 10))
+    y = np.sum(np.sin(x), axis=1, keepdims=True)
+    from egobox_torch.ego import GpConfig
+
+    kw = dict(seed=1, n_start=4, gp_config=GpConfig(
+        corr_spec=egx.CorrelationSpec.MATERN52, n_start=1, max_eval=3))
+    box = [[-2.0, 2.0]] * 10
+    before = ck.launches
+    e32 = egx.Egor(box, dtype=torch.float32, **kw)
+    x32 = e32.suggest(x, y)
+    assert ck.launches > before
+    assert e32.solver.last_models.r_chol.dtype == torch.float32
+    before = ck.launches
+    e64 = egx.Egor(box, **kw)
+    x64 = e64.suggest(x, y)
+    assert ck.launches == before
+    assert e64.solver.last_models.r_chol.dtype == torch.float64
+    assert x32.shape == x64.shape == (1, 10)

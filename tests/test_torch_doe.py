@@ -1,0 +1,91 @@
+"""egobox_torch's LHS kinds and the ESE refinement against egobox_tpu's.
+
+torch's generator never reproduces JAX's threefry bits, so designs are
+compared by their distribution: Latin-hypercube structure, and the phi_p
+(p = 10) criterion after ESE from the same ``lhs0``: no worse than
+``lhs0``'s and within 5 % of JAX's median over 5 seeds.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from egobox_tpu.doe import lhs as jlhs
+from egobox_torch.doe import lhs as tlhs
+
+torch.set_num_threads(2)
+
+
+def _is_lhs(x, ns):
+    strata = np.floor(np.asarray(x) * ns).astype(int)
+    return all(sorted(col) == list(range(ns)) for col in strata.T)
+
+
+@pytest.mark.parametrize("kind", list(tlhs.LhsKind))
+def test_every_kind_is_a_latin_hypercube(kind):
+    gen = torch.Generator().manual_seed(3)
+    x = tlhs.lhs_normalized(gen, 12, 3, kind, device="cpu")
+    assert x.shape == (12, 3) and x.dtype == torch.float64
+    assert _is_lhs(x.numpy(), 12)
+    assert [k.value for k in tlhs.LhsKind] == [k.value for k in jlhs.LhsKind]
+
+
+def test_optimized_lhs_is_a_latin_hypercube_and_repeats_with_its_seed():
+    a = tlhs.optimized_lhs(15, 2, torch.Generator().manual_seed(7),
+                           device="cpu")
+    b = tlhs.optimized_lhs(15, 2, torch.Generator().manual_seed(7),
+                           device="cpu")
+    assert _is_lhs(a.numpy(), 15)
+    assert torch.equal(a, b)
+    assert tlhs.optimized_lhs(1, 2, torch.Generator().manual_seed(7),
+                              device="cpu").shape == (1, 2)
+
+
+def test_candidate_phip_matches_full_recomputation():
+    x = tlhs.classic_lhs(9, 3, torch.Generator().manual_seed(2), device="cpu")
+    p = 10.0
+    phip_p = tlhs._phip(x, p) ** p
+    i1, i2 = torch.tensor([0, 4, 8]), torch.tensor([3, 1, 2])
+    got = tlhs._candidate_phip(x, phip_p, i1, i2, 1, p)
+    for j in range(3):
+        y = x.clone()
+        y[i1[j], 1], y[i2[j], 1] = x[i2[j], 1], x[i1[j], 1]
+        np.testing.assert_allclose(float(got[j]),
+                                   float(tlhs._phip(y, p) ** p), rtol=1e-10)
+        want = jlhs._candidate_phip(jnp.asarray(x.numpy()),
+                                    jnp.asarray(float(phip_p)),
+                                    int(i1[j]), int(i2[j]), 1, p)
+        np.testing.assert_allclose(float(got[j]), float(want), rtol=1e-10)
+
+
+def test_ese_improves_phip_like_jax():
+    ns, nx, outer, inner = 20, 3, 4, 60
+    ratios_t, ratios_j = [], []
+    for seed in range(5):
+        lhs0 = np.asarray(jlhs.classic_lhs(jax.random.key(seed), ns, nx,
+                                           jnp.float64))
+        phip0 = float(jlhs._phip(jnp.asarray(lhs0), 10.0))
+        xj = jlhs.maximin_ese(jax.random.key(100 + seed),
+                              jnp.asarray(lhs0), outer, inner)
+        xt = tlhs.maximin_ese(torch.Generator().manual_seed(100 + seed),
+                              torch.tensor(lhs0), outer, inner)
+        assert _is_lhs(xt.numpy(), ns)
+        phip_t = float(tlhs._phip(xt, 10.0))
+        assert phip_t <= phip0 * (1 + 1e-12)
+        ratios_t.append(phip_t / phip0)
+        ratios_j.append(float(jlhs._phip(xj, 10.0)) / phip0)
+    assert np.median(ratios_t) <= 1.05 * np.median(ratios_j), (ratios_t,
+                                                               ratios_j)
+    assert np.median(ratios_t) < 0.9
+
+
+def test_lhs_object_scales_to_its_limits():
+    xl = np.array([[0.0, 25.0], [-3.0, 3.0]])
+    s = tlhs.Lhs(xl, tlhs.LhsKind.MAXIMIN, seed=4, device="cpu").sample(8)
+    assert s.shape == (8, 2)
+    assert bool(((s >= torch.tensor(xl[:, 0]))
+                 & (s <= torch.tensor(xl[:, 1]))).all())
+    with pytest.raises(ValueError):
+        tlhs.Lhs([0.0, 1.0], device="cpu")

@@ -108,3 +108,44 @@ def test_multistart_kpls_masked_matches_jax(monkeypatch):
     mj = jgp.fit_gp(xp, yp, **kw)
     x_test = np.random.default_rng(5).uniform(-2.0, 2.0, (10, 4))
     _assert_same_model(mt, mj, x_test)
+
+
+@pytest.mark.parametrize("ls_batch", [0, 8])
+@pytest.mark.parametrize("corr,kpls_dim", [
+    ("matern52", None), ("absolute_exponential", None),
+    ("squared_exponential", None), ("matern32", 2)])
+def test_lanes_at_once_match_lane_after_lane_and_jax(corr, kpls_dim, ls_batch,
+                                                     monkeypatch):
+    """A multistart fit (1 + 3 restarts, JAX's seeds injected) with the
+    restarts as lockstep lanes on a stack of thetas, as ``fit_gp_core``
+    runs an unmasked small design, against the same fit lane after lane
+    (``_LANES_MAX_POINTS`` = 0: theta rel 1e-8, likelihood rel 1e-10) and against
+    egobox_tpu's vmapped fit (``_assert_same_model``)."""
+    x, y = _data(40, 3, 7)
+    dim = kpls_dim or 3
+    key = jax.random.key(4)
+    seeds = np.asarray(jax_maximin_lhs(key, 3, dim, False, 5, jnp.float64))
+    monkeypatch.setattr(tfit, "_fit_draws", lambda s: _JaxDraws([], [seeds]))
+    kw = dict(corr=corr, kpls_dim=kpls_dim, n_start=3, max_iters=12, seed=4,
+              nugget=1e-6, ls_batch=ls_batch)
+    calls = []
+    real = tfit.minimize_lbfgsb
+
+    def spy(fun, x0, *a, **k):
+        calls.append(tuple(x0.shape))
+        return real(fun, x0, *a, **k)
+
+    monkeypatch.setattr(tfit, "minimize_lbfgsb", spy)
+    at_once = tgp.fit_gp(x, y, device="cpu", **kw)
+    assert calls == [(4, dim)]
+    calls.clear()
+    monkeypatch.setattr(tfit, "_LANES_MAX_POINTS", 0)
+    one_by_one = tgp.fit_gp(x, y, device="cpu", **kw)
+    assert calls == [(dim,)] * 4
+    np.testing.assert_allclose(at_once.theta.numpy(),
+                               one_by_one.theta.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(float(at_once.likelihood),
+                               float(one_by_one.likelihood), rtol=1e-10)
+    mj = jgp.fit_gp(x, y, **kw)
+    x_test = np.random.default_rng(8).uniform(-2.0, 2.0, (10, 3))
+    _assert_same_model(at_once, mj, x_test)

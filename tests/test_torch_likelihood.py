@@ -93,6 +93,77 @@ def test_value_inner_and_gradient_match_jax(corr, kpls):
                                atol=1e-7 * np.max(np.abs(g_j)))
 
 
+@pytest.mark.parametrize("kpls", [False, True])
+@pytest.mark.parametrize("corr", KERNELS)
+def test_theta_stack_matches_jax_and_one_theta(corr, kpls, monkeypatch):
+    """The likelihood and its adjoint on a stack of thetas (the lanes and
+    line-search trials of a lockstep multistart in one evaluation): every
+    row's value, inner parameters and gradient against egobox_tpu's
+    likelihood and ``jax.grad`` (values rel 1e-9, gradients rel 1e-7) and
+    against the port's own one-theta form (rel 1e-11: the same arithmetic,
+    batched). The block budget is cut so that the L1 family's Gram runs in
+    several chunks of thetas and its adjoint in several row blocks."""
+    monkeypatch.setattr(tlk, "_STACK_BUDGET", 2 * 60 * 60 * 3)
+    trend = "linear" if kpls else "constant"
+    xn, yn, ys, theta, w = _problem(kpls=kpls)
+    rng = np.random.default_rng(12)
+    thetas = theta * rng.uniform(0.5, 2.0, (5, theta.shape[0]))
+    args = (corr, trend, _t(xn), _t(yn), _t(ys))
+    rlf_s, inner_s = tlk.reduced_likelihood(*args, _t(thetas), _opt(w, _t),
+                                            1e-10)
+    assert rlf_s.shape == (5,) and inner_s.r_chol.shape == (5, 60, 60)
+    f = tlk.make_neg_reduced_likelihood(*args, _opt(w, _t), 1e-10)
+    th = _t(thetas).clone().requires_grad_(True)
+    v_s = f(th)
+    (g_s,) = torch.autograd.grad(v_s.sum(), th)
+    v_s = v_s.detach()
+    for i in range(5):
+        rlf_1, inner_1 = tlk.reduced_likelihood(*args, _t(thetas[i]),
+                                                _opt(w, _t), 1e-10)
+        np.testing.assert_allclose(float(rlf_s[i]), float(rlf_1), rtol=1e-11)
+        for a, b in zip(inner_s, inner_1):
+            np.testing.assert_allclose(
+                a[i].numpy(), b.numpy(), rtol=1e-9,
+                atol=1e-11 * float(b.abs().max()))
+        v_1, g_1 = _torch_vg(corr, trend, xn, yn, ys, thetas[i], w, 1e-10)
+        v_j, g_j = _jax_vg(corr, trend, xn, yn, ys, thetas[i], w, 1e-10)
+        np.testing.assert_allclose(float(v_s[i]), v_1, rtol=1e-11)
+        np.testing.assert_allclose(float(v_s[i]), v_j, rtol=1e-9)
+        np.testing.assert_allclose(g_s[i].numpy(), g_1, rtol=1e-9,
+                                   atol=1e-11 * np.max(np.abs(g_1)))
+        np.testing.assert_allclose(g_s[i].numpy(), g_j, rtol=1e-7,
+                                   atol=1e-7 * np.max(np.abs(g_j)))
+    # lanes x trials: any leading shape
+    with torch.no_grad():
+        v_lt = f(_t(thetas[:4].reshape(2, 2, -1)))
+    np.testing.assert_allclose(v_lt.numpy().ravel(), v_s[:4].numpy(),
+                               rtol=1e-12)
+
+
+def test_theta_stack_keeps_a_failed_row_to_itself():
+    """A theta whose R is not positive definite gives -inf in its own row
+    of a stack and a zero gradient there; the other rows are untouched
+    (duplicated points with no nugget fail at every theta, so the failing
+    row is made by a NaN theta)."""
+    xn, yn, ys, theta, _ = _problem(n=30)
+    thetas = np.stack([theta, theta * np.nan, 0.5 * theta])
+    f = tlk.make_neg_reduced_likelihood(
+        "matern52", "constant", _t(xn), _t(yn), _t(ys), None, 1e-10)
+    th = _t(thetas).clone().requires_grad_(True)
+    v = f(th)
+    (g,) = torch.autograd.grad(v.sum(), th)
+    v = v.detach()
+    assert np.isposinf(float(v[1])) and bool((g[1] == 0).all())
+    for i in (0, 2):
+        v_1, g_1 = _torch_vg("matern52", "constant", xn, yn, ys, thetas[i],
+                             None, 1e-10)
+        np.testing.assert_allclose(float(v[i]), v_1, rtol=1e-11)
+        np.testing.assert_allclose(g[i].numpy(), g_1, rtol=1e-9)
+    with pytest.raises(ValueError, match="unmasked"):
+        tlk._build_r("matern52", _t(xn), _t(thetas), None, 1e-10,
+                     torch.ones(30, dtype=torch.bool))
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("corr", KERNELS)
 def test_build_r_matches_jax(corr, masked):
@@ -275,9 +346,15 @@ def test_nan_objective_region():
 
 
 def test_batched_line_search_not_ported():
-    lo, hi, x0 = _f64(np.zeros(2), np.ones(2), np.zeros(2))
-    with pytest.raises(NotImplementedError):
-        topt.minimize_lbfgsb(lambda x: torch.sum(x), x0, lo, hi, ls_batch=8)
+    """The name dates from when ``ls_batch > 0`` raised; the speculative
+    line search is ported since, and the one-lane form gives egobox_tpu's
+    iterates (tests/test_torch_lbfgsb.py holds the lockstep form)."""
+    lo, hi, x0 = _f64(np.full(4, -2.0), np.full(4, 2.0), np.full(4, -1.0))
+    res = topt.minimize_lbfgsb(rosen_t, x0, lo, hi, max_iters=12, ls_batch=8)
+    ref = jopt.minimize_lbfgsb(rosen_j, jnp.full(4, -1.0), jnp.full(4, -2.0),
+                               jnp.full(4, 2.0), max_iters=12, ls_batch=8)
+    assert res.n_iters == int(ref.n_iters)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), atol=1e-9)
 
 
 def test_tr_rosenbrock_box_matches_jax():
