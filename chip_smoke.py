@@ -22,27 +22,54 @@ Phases (any failure raises and the script exits non-zero):
    Cholesky) on Griewank data, given as numpy with no device (the entry
    point's default, the card), then predict on 2000 holdout points;
 6. egor-xsinx: ``Egor([[0, 25]], seed=s).minimize(xsinx, max_iters=20)``
-   for s in 42, 2, 3 against the golden: y = -15.125 within 1e-3 at every
-   seed, x = 18.935 within 1e-3 at seed 42 and at 2 of the 3 at least (how
-   close the last points come in x depends on the draw stream; egobox_tpu
-   itself meets that gate at 3 seeds of 4);
+   on the default path, the fused iteration (the solver's first call eager
+   as the warm-up, then one CUDA graph per signature, captured at its first
+   call and replayed), for s in 42, 2, 3 against
+   the golden: y = -15.125 within 1e-3 at every seed, x = 18.935 within
+   1e-3 at seed 42 and at 2 of the 3 at least (how close the last points
+   come in x depends on the draw stream; egobox_tpu itself meets that gate
+   at 3 seeds of 4); seed 42 again on the unfused path
+   (``EGOBOX_NO_FUSED_STEP=1``), and one step of each path from the same
+   design (xsinx and G24), x within 1e-5 of the box width;
 7. egor-g24-utb: G24 with 2 surrogate constraints, upper trust bound, 30
-   iterations (y = -5.5080 within 1e-2, x within 1e-2 of (2.3295, 3.1785),
-   feasible to the tolerance, a 35-point DoE), then the TREGO run (40
-   iterations, the same gate on y);
-8. egor-d10-doe1000-matern52: 3 EGO iterations on Griewank (+-600, d=10)
-   from a 1000-point DoE with the Matern 5/2 kernel, asked for in float32
-   (``dtype=torch.float32``; Egor's default for a design this size is
-   float64): every likelihood evaluation of the refit and the scaling
-   cloud launch K1. K1's count rises in every iteration, each new point
-   lies in the box and is new, the best value is no worse than the DoE's;
-   the last refit's float32 likelihood, and the likelihood and gradient of
-   a stack of thetas as the lockstep lanes evaluate them, are held against
-   a float64 recomputation at the fitted theta, and the float32 surrogate's
-   prediction on 2000 holdout points against the float64 model's.
+   fused iterations (y = -5.5080 within 1e-2, x within 1e-2 of (2.3295,
+   3.1785), feasible to the tolerance, a 35-point DoE), then the TREGO run
+   (40 iterations, the same gate on y);
+8. the traced run (``traced_run=True``, the objective in torch operations
+   on the card, one host fetch per chunk): xsinx (20 iterations, seeds 42,
+   2, 3: y at every seed, x at 2 of the 3) and G24 UTB (30, the golden in
+   x and y); prints ``egor_xsinx_traced_iters_per_s`` and
+   ``egor_g24_traced_iters_per_s``;
+9. EgorBatch: 8 copies of G24 (UTB), each on its own copy of the box with
+   its own DoE, 20 iterations as one program per iteration: every
+   problem's best point feasible to 1e-3;
+10. egor-d10-doe1000-matern52: 12 fused EGO iterations on Griewank (+-600,
+   d=10) from a 1000-point DoE with the Matern 5/2 kernel, asked for in
+   float32 (``dtype=torch.float32``; Egor's default for a design this size
+   is float64): every likelihood evaluation of the refit and the scaling
+   cloud launch K1, inside the captured graphs from the second iteration
+   on, through two buckets of the padded design (1008 and 1016 rows: the
+   phase raises ``ego.graphs.GRAPH_MAX_ROWS``, above which the default runs
+   the fused iteration eagerly). The
+   graphs of the first bucket are dropped when the design leaves it: the
+   memory reserved stays flat (within 1.25x) from one bucket to the next.
+   Every K1 shape launched is held against the plain version, each new
+   point lies in the box and is new, the best value is no worse than the
+   DoE's; the last refit's float32 likelihood, and the likelihood and
+   gradient of a stack of thetas as the lockstep lanes evaluate them, are
+   held against a float64 recomputation at the fitted theta, and the
+   float32 surrogate's prediction on 2000 holdout points against the
+   float64 model's.
 
-Phases 6-8 go through ``egobox_torch.Egor`` with numpy in and no device (the
-card). It prints one JSON line describing the kernels (with each one's bound: the
+Every Egor phase prints its seconds per EGO iteration (per phase on the
+unfused path, per kind of graph call on the fused one, per chunk on the
+traced run), its host reads per iteration (the synchronizing operations
+PyTorch's sync debug mode reports), the graphs captured, their capture
+seconds, the most memory their pool held, the graphs dropped, and the
+replays per iteration.
+
+Phases 6-10 go through ``egobox_torch.Egor`` / ``EgorBatch`` with no device
+(the card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
 as its last line, ``{"ok": true, "device": {...}}``. Needs no network and
@@ -544,105 +571,340 @@ def g24(point):
     return np.array([-x1 - x2, c1, c2]).T
 
 
-def _egor_report(torch, name, egor, res, iters, dtype, extra=""):
-    """The checks every Egor phase shares and its one line of results."""
+def xsinx_t(x):
+    """xsinx in torch operations: the traced run evaluates it on the card."""
+    import torch
+
+    return (x - 3.5) * torch.sin((x - 3.5) / np.pi)
+
+
+def g24_t(p):
+    import torch
+
+    x1, x2 = p[:, :1], p[:, 1:2]
+    c1 = -2.0 * x1**4 + 8.0 * x1**3 - 8.0 * x1**2 + x2 - 2.0
+    c2 = (-4.0 * x1**4 + 32.0 * x1**3 - 88.0 * x1**2 + 96.0 * x1 + x2
+          - 36.0)
+    return torch.cat([-x1 - x2, c1, c2], dim=1)
+
+
+def run_counted(torch, fn):
+    """fn() with the card's synchronizing operations counted (PyTorch's
+    sync debug mode reports each device-to-host read; the port's
+    host-to-device copies are asynchronous). Returns (result, seconds,
+    reads)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    return out, wall, reads
+
+
+def _med(vals):
+    return statistics.median(vals) if vals else float("nan")
+
+
+def egor_stats(name, owner, wall, reads, iters):
+    """One line per Egor run: seconds per EGO iteration (per phase on the
+    unfused path, per kind of graph call on the fused one, per chunk on the
+    traced run), host reads, and what the CUDA graphs cost."""
+    times = owner.iteration_times
+    g = owner.solver.graphs.stats if hasattr(owner, "solver") else \
+        owner.graphs.stats
+    if times and "chunk" in times[0]:
+        split = f"chunks {[round(t['chunk'], 4) for t in times]!r} s"
+    elif times and "fit" in times[0]:
+        split = (f"fit {_med([t['fit'] for t in times])!r} s, cloud "
+                 f"{_med([t['cloud'] for t in times])!r} s, infill "
+                 f"{_med([t['infill'] for t in times])!r} s")
+    else:
+        by = {how: _med([t['total'] for t in times if t['graph'] == how])
+              for how in ("eager", "capture", "replay")}
+        split = f"by graph call {by!r} s"
+    mib = (None if g.pool_peak_bytes is None
+           else g.pool_peak_bytes / 2**20)
+    stats = dict(iterations=iters, wall_s=wall, iters_per_s=iters / wall,
+                 host_reads_per_iteration=reads / iters,
+                 graphs_captured=g.captures, capture_s=g.capture_s,
+                 graph_pool_peak_mib=mib, graphs_dropped=g.evicted,
+                 replays_per_iteration=g.replays / iters,
+                 eager_calls=g.eager)
+    per = [t["chunk"] / t["iterations"] if "chunk" in t else t["total"]
+           for t in times]
+    print(f"{name}: {iters} iterations in {wall!r} s ({iters / wall!r} "
+          f"iterations/s), per EGO iteration median {_med(per)!r} s, max "
+          f"{max(per)!r} s ({split}); host reads {reads / iters!r} per "
+          f"iteration; graphs captured {g.captures} in {g.capture_s!r} s, "
+          f"pool at most {mib!r} MiB, dropped {g.evicted}, replays "
+          f"{g.replays} "
+          f"({g.replays / iters!r} per iteration), eager calls {g.eager}",
+          flush=True)
+    return stats
+
+
+def _egor_checks(torch, name, egor, res, iters, dtype):
+    """The checks every single-problem Egor phase shares."""
     models = egor.solver.last_models
-    if not (models.r_chol.is_cuda and models.theta.is_cuda):
-        raise RuntimeError(f"{name}: the surrogates are on "
-                           f"{models.r_chol.device}, not the card")
-    if models.r_chol.dtype != dtype:
-        raise RuntimeError(f"{name}: surrogates in {models.r_chol.dtype}, "
-                           f"expected {dtype}")
-    times = egor.iteration_times
-    if len(times) != iters:
-        raise RuntimeError(f"{name}: {len(times)} iterations, not {iters}")
+    if models is not None and not (models.r_chol.device.type == DEV
+                                   and models.r_chol.dtype == dtype):
+        raise RuntimeError(f"{name}: the surrogates are "
+                           f"{models.r_chol.dtype} on {models.r_chol.device}")
     if not (np.all(np.isfinite(res.x_doe)) and np.all(np.isfinite(res.y_doe))):
         raise RuntimeError(f"{name}: non-finite DoE")
-    tot = [t["total"] for t in times]
-    print(f"{name}: x_opt {res.x_opt.tolist()}, y_opt {res.y_opt.tolist()}, "
-          f"{len(times)} iterations in {models.r_chol.dtype}, per EGO "
-          f"iteration median {statistics.median(tot)!r} s, max {max(tot)!r} s"
-          f" (fit median {statistics.median(t['fit'] for t in times)!r} s, "
-          f"infill median "
-          f"{statistics.median(t['infill'] for t in times)!r} s){extra}",
+    n_iter = sum(t.get("iterations", 1) for t in egor.iteration_times)
+    if n_iter != iters:
+        raise RuntimeError(f"{name}: {n_iter} iterations, not {iters}")
+    print(f"{name}: x_opt {res.x_opt.tolist()}, y_opt {res.y_opt.tolist()}",
           flush=True)
 
 
+def egor_run(torch, egx, name, make, fun, iters, dtype=None):
+    """Build an Egor, minimize with the reads counted, check, report."""
+    egor = make()
+    res, wall, reads = run_counted(
+        torch, lambda: egor.minimize(fun, max_iters=iters))
+    _egor_checks(torch, name, egor, res, iters, dtype or torch.float64)
+    return res, egor_stats(name, egor, wall, reads, iters)
+
+
+def _xsinx_golden(name, res):
+    if not abs(res.y_opt[0] + 15.125) < 1e-3:
+        raise RuntimeError(f"{name}: golden missed: y {res.y_opt}")
+    return bool(abs(res.x_opt[0] - 18.935) < 1e-3)
+
+
+def _g24_golden(name, res, x_gate=True):
+    ok = abs(res.y_opt[0] + 5.5080) < 1e-2 and np.all(res.y_opt[1:]
+                                                      <= G24_TOL)
+    if x_gate:
+        ok = ok and abs(res.x_opt[0] - 2.3295) < 1e-2 and abs(
+            res.x_opt[1] - 3.1785) < 1e-2
+    if not ok:
+        raise RuntimeError(f"{name}: golden missed: x {res.x_opt}, y "
+                           f"{res.y_opt}")
+
+
+def fused_equals_unfused(torch, egx):
+    """One step from a fixed design on the card, fused and unfused (the
+    same draws in the same order): x within 1e-5 of the box width."""
+    from egobox_torch.ego import EgorConfig, EgorSolver, GpConfig
+
+    worst = 0.0
+    for xl, fun, n_cstr in ((np.array([[0.0, 25.0]]), xsinx, 0),
+                            (np.array([[0.0, 3.0], [0.0, 4.0]]), g24, 2)):
+        got = []
+        for env in ("", "1"):
+            os.environ["EGOBOX_NO_FUSED_STEP"] = env
+            solver = EgorSolver(EgorConfig(
+                seed=7, n_cstr=n_cstr, n_start=4,
+                gp_config=GpConfig(n_start=2, max_eval=10)), xl)
+            got.append(solver.select_next_points(solver.init_state(fun))[0])
+        os.environ.pop("EGOBOX_NO_FUSED_STEP")
+        err = float(np.max(np.abs(got[0] - got[1]) / (xl[:, 1] - xl[:, 0])))
+        worst = max(worst, err)
+        if not err <= 1e-5:
+            raise RuntimeError(f"fused and unfused steps differ by {err!r} "
+                               "of the box width")
+    print(f"egor fused = unfused, one step on the card: x within {worst!r} "
+          "of the box width (tolerance 1e-5)", flush=True)
+
+
 def egor_xsinx_phase(torch, egx):
-    x_met = []
+    """The default (fused) path at the golden's seeds, the unfused path at
+    seed 42 beside it, and one step of each from the same design."""
+    x_met, out = [], {}
     for seed in XSINX_SEEDS:
-        egor = egx.Egor([[0.0, 25.0]], seed=seed)
-        res = egor.minimize(xsinx, max_iters=20)
-        _egor_report(torch, f"egor-xsinx seed {seed}", egor, res, 20,
-                     torch.float64)
-        if not abs(res.y_opt[0] + 15.125) < 1e-3:
-            raise RuntimeError(f"egor-xsinx seed {seed}: golden missed: y "
-                               f"{res.y_opt}")
-        x_met.append(bool(abs(res.x_opt[0] - 18.935) < 1e-3))
-    print(f"egor-xsinx: x within 1e-3 of 18.935 at seeds "
+        res, st = egor_run(torch, egx, f"egor-xsinx fused seed {seed}",
+                           lambda s=seed: egx.Egor([[0.0, 25.0]], seed=s),
+                           xsinx, 20)
+        x_met.append(_xsinx_golden("egor-xsinx", res))
+        out.setdefault("fused", st)
+    print(f"egor-xsinx fused: x within 1e-3 of 18.935 at seeds "
           f"{[s for s, ok in zip(XSINX_SEEDS, x_met) if ok]} of "
           f"{list(XSINX_SEEDS)}", flush=True)
     if not (x_met[0] and sum(x_met) >= XSINX_X_MIN):
         raise RuntimeError(f"egor-xsinx: x gate met at {x_met} of seeds "
                            f"{XSINX_SEEDS}")
+    os.environ["EGOBOX_NO_FUSED_STEP"] = "1"
+    try:
+        res, out["unfused"] = egor_run(
+            torch, egx, "egor-xsinx unfused seed 42",
+            lambda: egx.Egor([[0.0, 25.0]], seed=EGOR_SEED), xsinx, 20)
+    finally:
+        os.environ.pop("EGOBOX_NO_FUSED_STEP")
+    if not _xsinx_golden("egor-xsinx unfused", res):
+        raise RuntimeError(f"egor-xsinx unfused: x {res.x_opt}")
+    fused_equals_unfused(torch, egx)
+    return out
+
+
+G24_KW = dict(cstr_tol=np.array([G24_TOL, G24_TOL]), n_cstr=2,
+              seed=EGOR_SEED, n_doe=5)
+G24_BOX = [[0.0, 3.0], [0.0, 4.0]]
 
 
 def egor_g24_phase(torch, egx):
-    kw = dict(cstr_tol=np.array([G24_TOL, G24_TOL]), n_cstr=2,
-              seed=EGOR_SEED, n_doe=5)
-    box = [[0.0, 3.0], [0.0, 4.0]]
-    egor = egx.Egor(box, q_optmod=2,
-                    cstr_strategy=egx.ConstraintStrategy.UTB, **kw)
-    res = egor.minimize(g24, max_iters=30)
-    _egor_report(torch, "egor-g24-utb", egor, res, 30, torch.float64)
-    if not (abs(res.y_opt[0] + 5.5080) < 1e-2
-            and abs(res.x_opt[0] - 2.3295) < 1e-2
-            and abs(res.x_opt[1] - 3.1785) < 1e-2
-            and np.all(res.y_opt[1:] <= G24_TOL)
-            and res.x_doe.shape == (35, 2) and res.y_doe.shape == (35, 3)):
-        raise RuntimeError(f"egor-g24-utb: golden missed: x {res.x_opt}, "
-                           f"y {res.y_opt}, DoE {res.x_doe.shape}")
-    egor = egx.Egor(box, trego=True, **kw)
-    res = egor.minimize(g24, max_iters=40)
-    _egor_report(torch, "egor-g24-trego", egor, res, 40, torch.float64)
-    if not (abs(res.y_opt[0] + 5.5080) < 1e-2
-            and np.all(res.y_opt[1:] <= G24_TOL)):
-        raise RuntimeError(f"egor-g24-trego: golden missed: x {res.x_opt}, "
-                           f"y {res.y_opt}")
+    out = {}
+    res, out["utb"] = egor_run(
+        torch, egx, "egor-g24-utb fused",
+        lambda: egx.Egor(G24_BOX, q_optmod=2,
+                         cstr_strategy=egx.ConstraintStrategy.UTB, **G24_KW),
+        g24, 30)
+    _g24_golden("egor-g24-utb", res)
+    if res.x_doe.shape != (35, 2):
+        raise RuntimeError(f"egor-g24-utb: DoE {res.x_doe.shape}")
+    res, out["trego"] = egor_run(
+        torch, egx, "egor-g24-trego fused",
+        lambda: egx.Egor(G24_BOX, trego=True, **G24_KW), g24, 40)
+    _g24_golden("egor-g24-trego", res, x_gate=False)
+    return out
 
 
-def egor_d10_phase(torch, egx, ck):
-    """3 EGO iterations from a 1000-point DoE, d=10, Matern 5/2, float32:
-    the size at which the Egor loop's Grams (1000^2 x 10 = 1e7 elements)
-    are K1's. Returns K1's launches per iteration."""
-    n_doe, iters = 1000, 3
+def egor_traced_phase(torch, egx):
+    """The whole run on the card, the objective in torch operations: xsinx
+    (20 iterations, y at every seed, x at 2 of the 3) and G24 UTB (30)."""
+    out, x_met = {}, []
+    for seed in XSINX_SEEDS:
+        res, st = egor_run(
+            torch, egx, f"egor-xsinx traced seed {seed}",
+            lambda s=seed: egx.Egor([[0.0, 25.0]], seed=s, traced_run=True),
+            xsinx_t, 20)
+        x_met.append(_xsinx_golden("egor-xsinx traced", res))
+        out.setdefault("xsinx", st)
+    print(f"egor-xsinx traced: x within 1e-3 of 18.935 at seeds "
+          f"{[s for s, ok in zip(XSINX_SEEDS, x_met) if ok]} of "
+          f"{list(XSINX_SEEDS)}", flush=True)
+    if sum(x_met) < XSINX_X_MIN:
+        raise RuntimeError(f"egor-xsinx traced: x gate met at {x_met}")
+    res, out["g24"] = egor_run(
+        torch, egx, "egor-g24-utb traced",
+        lambda: egx.Egor(G24_BOX, q_optmod=2, traced_run=True,
+                         cstr_strategy=egx.ConstraintStrategy.UTB, **G24_KW),
+        g24_t, 30)
+    _g24_golden("egor-g24-utb traced", res)
+    print(json.dumps({
+        "egor_xsinx_traced_iters_per_s": out["xsinx"]["iters_per_s"],
+        "egor_g24_traced_iters_per_s": out["g24"]["iters_per_s"]}),
+        flush=True)
+    return out
+
+
+def egor_batch_phase(torch, egx):
+    """EgorBatch: 8 copies of G24 (UTB), each problem on its own copy of the
+    box with its own DoE, 20 iterations; every problem's best point
+    feasible to 1e-3."""
+    n_prob, iters = 8, 20
+    box = np.broadcast_to(np.array(G24_BOX), (n_prob, 2, 2)).copy()
+    eb = egx.EgorBatch([g24] * n_prob, box, n_cstr=2,
+                       cstr_tol=np.array([G24_TOL, G24_TOL]),
+                       cstr_strategy=egx.ConstraintStrategy.UTB,
+                       seed=EGOR_SEED)
+    res, wall, reads = run_counted(torch, lambda: eb.minimize(iters))
+    ys = [r.y_opt.tolist() for r in res]
+    print(f"egor-batch-8xg24: best y per problem {ys}", flush=True)
+    for b, r in enumerate(res):
+        if not (np.all(r.y_opt[1:] <= G24_TOL) and np.all(np.isfinite(
+                r.y_doe))):
+            raise RuntimeError(f"egor-batch problem {b}: y {r.y_opt}")
+    if len(eb.iteration_times) != iters:
+        raise RuntimeError(f"egor-batch: {len(eb.iteration_times)} "
+                           "iterations")
+    st = egor_stats("egor-batch-8xg24", eb, wall, reads, iters)
+    st["problem_iters_per_s"] = n_prob * iters / wall
+    return st
+
+
+def egor_d10_phase(torch, egx, ck, n_doe=1000, iters=12):
+    """12 fused EGO iterations from a 1000-point DoE, d=10, Matern 5/2,
+    float32: the size at which the Egor loop's Grams (1000^2 x 10 = 1e7
+    elements) are K1's, inside the captured graphs (iteration 0 is the
+    eager warm-up; the design then grows through the buckets of 1008 and
+    1016 rows, each captured at its first call and replayed after). Every
+    K1 shape launched is held against the plain version. The graphs of a
+    bucket the design has left are dropped: the memory the allocator
+    reserves in the last bucket stays within 1.25x of what it reserved in
+    the first. Returns K1's launches that ran, per iteration (the wrapper's
+    less those a capture recorded, plus those replays made)."""
+    from egobox_torch.ego import graphs
+
     box = np.array([[-600.0, 600.0]] * DIM)
     rng = np.random.default_rng(EGOR_SEED)
     doe = rng.uniform(-600.0, 600.0, (n_doe, DIM))
-    counts = []
-
-    def fun(x):
-        counts.append(ck.launches)  # once for the DoE, once per iteration
-        return griewank(np.atleast_2d(x)).reshape(-1, 1)
-
+    marks = []
+    # by default the fused path captures designs of at most 256 rows: this
+    # phase captures those of 1008 and 1016 rows, so that K1 runs inside
+    # the graphs and the memory of two buckets' pools is checked where it
+    # is large
+    max_rows = graphs.GRAPH_MAX_ROWS
+    graphs.GRAPH_MAX_ROWS = 2048
     egor = egx.Egor(box, doe=doe, corr_spec=egx.CorrelationSpec.MATERN52,
                     seed=EGOR_SEED, dtype=torch.float32)
+    stats = egor.solver.graphs.stats
+
+    def fun(x):
+        # once for the DoE, once per iteration (after its select)
+        marks.append((ck.launches, stats.kernel_captured.get("corr_tile", 0),
+                      stats.kernel_replays.get("corr_tile", 0),
+                      torch.cuda.memory_reserved(), egor.solver.graphs.live))
+        return griewank(np.atleast_2d(x)).reshape(-1, 1)
+
     ck.launches = 0
     ck.launch_shapes.clear()
     torch.cuda.reset_peak_memory_stats()
-    res = egor.minimize(fun, max_iters=iters)
+    try:
+        res, wall, reads = run_counted(
+            torch, lambda: egor.minimize(fun, max_iters=iters))
+    finally:
+        graphs.GRAPH_MAX_ROWS = max_rows
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    per_iter = [b - a for a, b in zip(counts, counts[1:])]
+    ran = [(b[0] - a[0]) - (b[1] - a[1]) + (b[2] - a[2])
+           for a, b in zip(marks, marks[1:])]
+    replayed = stats.kernel_replays.get("corr_tile", 0)
     by_shape = {f"{n1}x{n2}": c
                 for (n1, n2), c in sorted(ck.launch_shapes.items())}
-    _egor_report(torch, "egor-d10-doe1000-matern52", egor, res, iters,
-                 torch.float32,
-                 f"; K1 launches per iteration {per_iter}, by shape "
-                 f"{by_shape}; fit / cloud / infill s per iteration "
-                 f"{[(t['fit'], t['cloud'], t['infill']) for t in egor.iteration_times]}"
-                 f"; peak memory {peak_gib!r} GiB")
-    if len(per_iter) != iters or min(per_iter) <= 0:
-        raise RuntimeError(f"egor-d10: K1 launches per iteration {per_iter}")
+    _egor_checks(torch, "egor-d10-doe1000-matern52", egor, res, iters,
+                 torch.float32)
+    st = egor_stats("egor-d10-doe1000-matern52 fused float32", egor, wall,
+                    reads, iters)
+    reserved = [mk[3] / 2**30 for mk in marks[1:]]
+    live = [mk[4] for mk in marks[1:]]
+    first = max(reserved[1:1 + 8])  # the 1008-row bucket's iterations
+    last = max(reserved[1 + 8:])  # the 1016-row bucket's
+    print(f"egor-d10: K1 launches that ran per iteration {ran} (captures "
+          f"recorded {stats.kernel_captured}, replays made {replayed}); by "
+          f"shape as issued {by_shape}; peak memory {peak_gib!r} GiB; "
+          f"reserved per iteration {reserved!r} GiB, graphs held {live}, "
+          f"dropped {stats.evicted}", flush=True)
+    if stats.captures < 2 or replayed <= 0:
+        raise RuntimeError(f"egor-d10: no replay of a graph holding K1 "
+                           f"({stats})")
+    if not (sum(ran) > 0 and stats.evicted >= 1 and max(live) <= 2
+            and last <= 1.25 * first):
+        raise RuntimeError(f"egor-d10: K1 ran {ran}; the graphs of a left "
+                           f"bucket are not dropped or memory grows: "
+                           f"{reserved} GiB, {live} graphs held")
+    # every shape the fused path launched K1 at, against the plain version
+    worst = 0.0
+    for n1, n2 in ck.launch_shapes:
+        x1 = torch.randn((n1, DIM), device=DEV)
+        x2 = x1 if n1 == n2 else torch.randn((n2, DIM), device=DEV)
+        th = torch.rand((DIM,), device=DEV) * 0.5 + 0.1
+        worst = max(worst, _k1_check(
+            torch, f"egor-d10 shape {n1}x{n2}",
+            ck.corr_cross_tile("matern52", x1, x2, th),
+            ck.corr_cross_plain("matern52", x1, x2, th)))
+    print(f"egor-d10: K1 at its {len(ck.launch_shapes)} shapes of the fused "
+          f"path against the plain version: max abs err {worst!r} (atol "
+          f"{K1_ATOL})", flush=True)
     new = res.x_doe[n_doe:]
     if res.x_doe.shape != (n_doe + iters, DIM) or not (
             np.all(new >= box[:, 0]) and np.all(new <= box[:, 1])):
@@ -656,7 +918,10 @@ def egor_d10_phase(torch, egx, ck):
         raise RuntimeError(f"egor-d10: y_opt {res.y_opt[0]} above the DoE's "
                            f"best {griewank(doe).min()}")
     egor_d10_float32_check(torch, egor, res, rng)
-    return per_iter, by_shape
+    st.update(k1_ran_per_iteration=ran, k1_replayed=replayed,
+              k1_by_shape=by_shape, peak_gib=peak_gib,
+              reserved_gib_per_iteration=reserved)
+    return st
 
 
 def egor_d10_float32_check(torch, egor, res, rng):
@@ -671,7 +936,7 @@ def egor_d10_float32_check(torch, egor, res, rng):
     from egobox_torch.gp.likelihood import make_neg_reduced_likelihood
 
     models = egor.solver.last_models
-    n = models.x_norm.shape[1]  # the last refit's design
+    n = int(models.mask[0].sum())  # the last refit's design (a prefix)
     theta = models.theta[0]
     nugget = 100.0 * torch.finfo(torch.float32).eps
     x64 = torch.tensor(res.x_doe[:n], dtype=torch.float64, device=DEV)
@@ -694,7 +959,7 @@ def egor_d10_float32_check(torch, egor, res, rng):
     stack = torch.stack([theta, 0.8 * theta, 1.25 * theta])
     y32 = torch.tensor(res.y_doe[:n, :1], dtype=torch.float32, device=DEV)
     v32, g32 = value_and_grad(
-        models.x_norm[0], (y32 - models.y_mean[0]) / models.y_std[0],
+        models.x_norm[0][:n], (y32 - models.y_mean[0]) / models.y_std[0],
         models.y_std[0], stack)
     y_norm64 = (y64[:, None] - m64.y_mean) / m64.y_std
     v64, g64 = zip(*(value_and_grad(m64.x_norm, y_norm64, m64.y_std, t)
@@ -753,9 +1018,13 @@ def main():
     k2 = k2_phase(torch, chk, lik)
     launches, k1_by_shape = slice_phase(torch, ck, chk)
     os.environ["EGOBOX_CHOL"] = "native"
-    egor_xsinx_phase(torch, egx)
-    egor_g24_phase(torch, egx)
-    egor_k1_per_iter, egor_k1_by_shape = egor_d10_phase(torch, egx, ck)
+    egor = dict(xsinx=egor_xsinx_phase(torch, egx),
+                g24=egor_g24_phase(torch, egx),
+                traced=egor_traced_phase(torch, egx),
+                batch=egor_batch_phase(torch, egx))
+    d10 = egor_d10_phase(torch, egx, ck)
+    egor["d10"] = d10
+    print(json.dumps({"egor": egor}), flush=True)
 
     kernels = [
         dict(name="corr_tile", route="cuda",
@@ -763,9 +1032,11 @@ def main():
              replaces="egobox_tpu/ops/pallas_corr.py:73",
              launches=launches["corr_tile"],
              launches_by_shape=k1_by_shape,
-             launches_egor_d10=sum(egor_k1_per_iter),
-             launches_egor_d10_per_iteration=egor_k1_per_iter,
-             launches_egor_d10_by_shape=egor_k1_by_shape, **k1),
+             launches_egor_d10_fused=sum(d10["k1_ran_per_iteration"]),
+             launches_egor_d10_fused_per_iteration=d10[
+                 "k1_ran_per_iteration"],
+             launches_egor_d10_fused_replayed=d10["k1_replayed"],
+             launches_egor_d10_by_shape=d10["k1_by_shape"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",

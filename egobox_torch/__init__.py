@@ -27,12 +27,13 @@ from .types import (
     XType,
 )
 from . import doe, ego, gp, optim
-from .ego import Egor, GpConfig
+from .ego import Egor, EgorBatch, GpConfig
 
 __all__ = [
     "ConstraintStrategy",
     "CorrelationSpec",
     "Egor",
+    "EgorBatch",
     "ExpectedOptimum",
     "GpConfig",
     "GpFileFormat",

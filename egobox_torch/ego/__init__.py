@@ -1,11 +1,15 @@
 """Egor: efficient global (Bayesian) optimization (port of egobox_tpu/ego).
 
-Ported: the host loop of ``Egor.minimize`` / ``Egor.suggest`` with its
-criteria, the lockstep multistart infill optimizer, TREGO and mixed-integer
-folding. The fused, traced and batched loops, CoEGO, the portfolio and
-clustered surrogates are not.
+Ported: ``Egor.minimize`` / ``Egor.suggest`` on the fused iteration (the
+default: one program per iteration, a CUDA graph on the GPU) and on the
+unfused host loop (``EGOBOX_NO_FUSED_STEP=1``), the traced whole run
+(``Egor(traced_run=True)``), ``EgorBatch``, the criteria, the lockstep
+multistart infill optimizer, TREGO and mixed-integer folding. CoEGO, the
+sigma-weight portfolio, clustered (MoE) surrogates and ``EgorBatch(mesh=)``
+are not.
 """
 
+from .batch import EgorBatch
 from .config import EgorConfig, GpConfig, TregoConfig
 from .criteria import ei, log_ei, log_ei_helper, log_pof, pof, wb2, wb2s_scale
 from .egor import Egor
@@ -22,6 +26,7 @@ from .surrogates import GpSpec, train_gp_surrogates
 
 __all__ = [
     "Egor",
+    "EgorBatch",
     "EgorConfig",
     "EgorSolver",
     "EgorState",

@@ -4,6 +4,7 @@ for the Python-facing defaults)."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -27,6 +28,12 @@ MAX_POINT_ADDITION_RETRY = 3
 
 #: default constraint tolerance (ref: egor_solver.rs:143)
 DEFAULT_CSTR_TOL = 1e-4
+
+
+def _default_bucket() -> int:
+    """Pad-to-bucket quantum of the growing DoE (EGOBOX_SHAPE_BUCKET, as in
+    egobox_tpu)."""
+    return int(os.environ.get("EGOBOX_SHAPE_BUCKET", "8"))
 
 
 @dataclass
@@ -97,10 +104,11 @@ class EgorConfig:
     #: >100 theta components; the gradient-based L-BFGS tunes the full
     #: theta jointly, so the default is joint tuning. CoEGO is not ported.
     coego_partial_theta_tuning: bool = False
-    #: egobox_tpu pads the DoE to multiples of this so XLA re-uses
-    #: compilations; the port fits the design unpadded (nothing compiles
-    #: per shape), keeps the field for configuration parity and ignores it
-    shape_bucket: int = 8
+    #: the fused iteration and the traced run pad the DoE to multiples of
+    #: this (with a mask) so that one captured CUDA graph serves every
+    #: design size of a bucket, as egobox_tpu re-uses one compiled program;
+    #: the unfused path fits the design unpadded
+    shape_bucket: int = field(default_factory=_default_bucket)
     #: warm-refit multistart width: from the second iteration on, the
     #: per-iteration surrogate MLE re-seeds only this many LHS lanes on top
     #: of the carried warm-start thetas (the carry makes full-width

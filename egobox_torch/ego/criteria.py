@@ -140,9 +140,9 @@ def wb2s_scale(means, vars, fmin, sigma_weight=1.0):
     (ref: wb2.rs compute_wb2s_scale)."""
     ratio = 100.0
     ei_x = ei(means, vars, fmin, sigma_weight)
-    i_max = torch.argmax(ei_x)
-    ei_max = ei_x[i_max]
-    pred_max = _t(means, ei_x)[i_max]
+    i_max = torch.argmax(ei_x).reshape(1)
+    ei_max = ei_x.reshape(-1).index_select(0, i_max)[0]
+    pred_max = _t(means, ei_x).reshape(-1).index_select(0, i_max)[0]
     ok = torch.abs(ei_max) > 100.0 * torch.finfo(ei_x.dtype).eps
     one = torch.ones_like(ei_max)
     return torch.where(

@@ -9,6 +9,11 @@ Data goes in and comes out as numpy; the surrogates and the infill
 optimization run on ``device`` (default: the GPU, and a host without one
 raises; ``device="cpu"`` runs on the CPU) in ``dtype`` (default:
 ``config.egor_dtype``).
+
+``traced_run=True`` (or ``EGOBOX_TRACED_RUN=1``; ``=0`` refuses it) runs
+the whole loop on the device when ``fun`` is written in torch operations
+(an (n, nx) tensor in, an (n, 1 + n_cstr) tensor out): ego/fused_run.py.
+Any other objective takes the host loop, as in egobox_tpu.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..types import (
     ConstraintStrategy,
@@ -79,12 +85,7 @@ class Egor:
         device=None,
         dtype=None,
     ):
-        if traced_run:
-            raise NotImplementedError(
-                "egobox_torch: the whole-run traced mode (traced_run=True) "
-                "is not ported (ROADMAP Queue 1: fused, traced and batched "
-                "EGO loops)"
-            )
+        self.traced_run = traced_run
         self.xspecs = parse_xspecs(xspecs)
         self.mixint = MixintContext(self.xspecs)
         if gp_config is None:
@@ -162,10 +163,19 @@ class Egor:
     ) -> OptimResult:
         cfg = self.config
         solver = self.solver
-        wfun = self._wrap_fun(fun)
         wcstrs = [self._wrap_cstr(c) for c in fcstrs]
-
         outdir = cfg.outdir
+        traced = self._use_traced_run(fun, wcstrs, outdir)
+        if traced:
+            # the initial DoE goes through the same torch objective
+            def wfun(x):
+                xt = torch.as_tensor(x, dtype=solver.dtype,
+                                     device=solver.device)
+                with torch.no_grad():
+                    return fun(xt).double().cpu().numpy()
+        else:
+            wfun = self._wrap_fun(fun)
+
         if outdir:
             os.makedirs(outdir, exist_ok=True)
             self._dump_config(outdir, max_iters)
@@ -175,6 +185,14 @@ class Egor:
         )
         if cfg.hot_start is not None and cfg.hot_start > 0:
             max_iters += int(cfg.hot_start)
+
+        self.iteration_times = []
+        if traced:
+            from .fused_run import run_traced
+
+            state = run_traced(solver, state, fun, max_iters, fcstrs=wcstrs)
+            self.iteration_times = solver.last_times["chunks"]
+            return self._result(state)
 
         recorder = None
         if run_recorder_enabled():
@@ -203,7 +221,6 @@ class Egor:
             )
 
         history = []
-        self.iteration_times = []
         for it in range(start_iter, max_iters):
             t_iter = time.perf_counter()
             try:
@@ -230,6 +247,41 @@ class Egor:
         if recorder is not None and outdir:
             recorder.save(outdir)
         return self._result(state)
+
+    def _use_traced_run(self, fun, fcstrs, outdir) -> bool:
+        """The gate of the whole-run mode (ego/fused_run.py): asked for
+        (``traced_run=True`` or ``EGOBOX_TRACED_RUN=1``, and not
+        ``EGOBOX_TRACED_RUN=0``), a continuous problem on the fused path
+        with no per-iteration host needs (observers, recorders), function
+        constraints in torch operations, and an objective that maps a
+        (1, nx) tensor on the solver's device to a (1, 1 + n_cstr) tensor
+        (probed once, at the middle of the box). A numpy objective, a host
+        callback, takes the host loop."""
+        env = os.environ.get("EGOBOX_TRACED_RUN")
+        if not ((self.traced_run or env == "1") and env != "0"):
+            return False
+        solver = self.solver
+        if fcstrs and not solver._fcstrs_traceable(tuple(fcstrs)):
+            return False
+        if (
+            outdir
+            or self.mixint.is_discrete
+            or run_recorder_enabled()
+            or os.environ.get("EGOR_USE_GP_RECORDER")
+            or not solver._fast_path_ok(())
+        ):
+            return False
+        probe = torch.as_tensor(solver.xlimits.mean(axis=1)[None, :],
+                                dtype=solver.dtype, device=solver.device)
+        try:
+            with torch.no_grad():
+                out = fun(probe)
+        except (TypeError, ValueError, RuntimeError, AttributeError,
+                IndexError):
+            # e.g. numpy refusing a GPU tensor: a host callback
+            return False
+        return (isinstance(out, torch.Tensor)
+                and tuple(out.shape) == (1, 1 + self.config.n_cstr))
 
     def _init_or_resume(self, wfun, wcstrs, outdir, max_iters):
         cfg = self.config

@@ -22,6 +22,8 @@ constraint axis first, ``(n_hard, ...)``, and per-lane multipliers are
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..optim.lbfgsb import minimize_lbfgsb
@@ -149,6 +151,9 @@ def optimize_infill(
     feasibility: bool = True,
     optimizer: str = "COBYLA",
     fcstr_fns: tuple = (),
+    graph_safe: bool = False,
+    valvar=surrogate_valvar_single,
+    problems: Optional[int] = None,
 ):
     """Returns (x_best (nx,), infill_obj_best, per-start (xs, fs, vs)).
 
@@ -177,6 +182,19 @@ def optimize_infill(
     neutralized (maximize PoF) and the surrogate hard constraints are
     deactivated, matching the static feasibility=False structure. Requires
     feasibility=True.
+
+    ``graph_safe``: every local solve in the L-BFGS form without host reads
+    (fixed trip counts, optim/lbfgsb.py); the rounds and the penalty
+    continuation are fixed counts already, so the whole multistart then
+    reads nothing on the host and can be captured in a CUDA graph.
+
+    ``problems`` (an int): the starts are ``problems`` groups of equal size,
+    problem after problem, each lane on its own problem's surrogates
+    (``valvar(models, x)`` maps the lanes to their posterior, output axis
+    first); ``fmin``, ``scale_infill``, ``scale_wb2`` and ``feas_flag`` are
+    then one value per lane (k,), ``scale_cstr`` (n_cstr, k), ``lo`` / ``hi``
+    (k, nx), and the result is one best x (problems, nx) and value
+    (problems,) per problem (EgorBatch, ego/fused_step.py).
     """
     n_fcstr = len(fcstr_fns)
     if feas_flag is not None and not feasibility:
@@ -190,6 +208,13 @@ def optimize_infill(
     surr_hard = (n_cstr > 0) and not cstr_infill and feasibility
     hard_cstr = surr_hard or n_fcstr > 0
 
+    def per_lane(v, x):
+        """A per-lane parameter (k,) against the batch x (see ``lanes``);
+        anything else as it is."""
+        if problems is not None and isinstance(v, torch.Tensor):
+            return lanes(v, x)
+        return v
+
     def obj_and_viol(x):
         """(criterion (...), scaled violations (n_hard, ...)) from one
         posterior evaluation at x (..., nx).
@@ -198,19 +223,25 @@ def optimize_infill(
         slack applied at feasibility checks, not a boundary shift (ref:
         optimizers/optimizer.rs:108 passes cstr_tol/scale to nlopt as the
         allowed violation on fc(x) <= 0)."""
-        means, vrs = surrogate_valvar_single(models, x)
+        means, vrs = valvar(models, x)
+        flag = per_lane(feas_flag, x)
         f = _infill_obj_terms(
-            crit, means, vrs, fmin, scale_infill, scale_wb2, cstr_tols,
-            cstr_infill, sigma_weight, feasibility, feas_flag,
+            crit, means, vrs, per_lane(fmin, x), per_lane(scale_infill, x),
+            per_lane(scale_wb2, x), cstr_tols, cstr_infill, sigma_weight,
+            feasibility, flag,
         )
         parts = []
         if surr_hard:
             g = means[1:]
             if cstr_strategy == "UTB":
                 g = g + CSTR_DOUBT * torch.sqrt(torch.clamp(vrs[1:], min=0.0))
-            gs = g / _col(scale_cstr, g)
+            if problems is not None:
+                gs = g / (scale_cstr[..., None] if x.ndim == 3
+                          else scale_cstr)
+            else:
+                gs = g / _col(scale_cstr, g)
             if feas_flag is not None:
-                gs = torch.where(feas_flag, gs, -torch.ones_like(gs))
+                gs = torch.where(flag, gs, -torch.ones_like(gs))
             parts.append(gs)
         if n_fcstr:
             gfc = _eval_fcstrs(fcstr_fns, x)
@@ -230,10 +261,11 @@ def optimize_infill(
         res = minimize_lbfgsb(
             lambda x: obj_and_viol(x)[0], starts, lo, hi,
             max_iters=inner_iters * 2, ls_batch=LS_BATCH,
+            graph_safe=graph_safe,
         )
         xs, fs = res.x, res.fun
         vs = torch.zeros((k,), dtype=dtype, device=device)
-        return _pick_best(xs, fs, vs)
+        return _pick_best(xs, fs, vs, problems)
 
     n_hard = (n_cstr if surr_hard else 0) + n_fcstr
     x = starts
@@ -253,6 +285,7 @@ def optimize_infill(
             x = minimize_lbfgsb(
                 penalized, x, lo, hi,
                 max_iters=inner_iters * n_outer // 3, ls_batch=LS_BATCH,
+                graph_safe=graph_safe,
             ).x
     else:
         lam = torch.zeros((n_hard, k), dtype=dtype, device=device)
@@ -267,7 +300,7 @@ def optimize_infill(
 
             x = minimize_lbfgsb(
                 penalized, x, lo, hi, max_iters=inner_iters,
-                ls_batch=LS_BATCH,
+                ls_batch=LS_BATCH, graph_safe=graph_safe,
             ).x
             with torch.no_grad():
                 _, g = obj_and_viol(x)
@@ -276,17 +309,30 @@ def optimize_infill(
     with torch.no_grad():
         fs, g = obj_and_viol(x)
     vs = torch.sum(torch.clamp(g, min=0.0), dim=0)
-    return _pick_best(x, fs, vs)
+    return _pick_best(x, fs, vs, problems)
 
 
-def _pick_best(xs, fs, vs):
+def _pick_best(xs, fs, vs, problems=None):
     """Best feasible start, else least-violating (shared by both
-    constrained optimizers)."""
+    constrained optimizers), per problem when the starts are ``problems``
+    groups."""
     fs = torch.where(torch.isfinite(fs), fs, torch.full_like(fs, torch.inf))
+    if problems is not None:
+        xp = xs.reshape(problems, -1, xs.shape[-1])
+        fp, vp = fs.reshape(problems, -1), vs.reshape(problems, -1)
+        feas = vp <= 1e-6
+        score = torch.where(feas, fp, torch.full_like(fp, torch.inf))
+        best = torch.where(feas.any(dim=1), torch.argmin(score, dim=1),
+                           torch.argmin(vp, dim=1))
+        rows = torch.arange(problems, device=xs.device)
+        return xp[rows, best], fp[rows, best], (xs, fs, vs)
     feas = vs <= 1e-6
     score = torch.where(feas, fs, torch.full_like(fs, torch.inf))
-    best = torch.where(feas.any(), torch.argmin(score), torch.argmin(vs))
-    return xs[best], fs[best], (xs, fs, vs)
+    best = torch.where(feas.any(), torch.argmin(score),
+                       torch.argmin(vs)).reshape(1)
+    # index_select: indexing with a 0-d tensor may read it on the host
+    return (xs.index_select(0, best)[0], fs.index_select(0, best)[0],
+            (xs, fs, vs))
 
 
 @torch.no_grad()

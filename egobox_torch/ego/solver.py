@@ -1,17 +1,26 @@
-"""EgorSolver: the EGO iteration engine (port of egobox_tpu/ego/solver.py,
-its unfused path).
+"""EgorSolver: the EGO iteration engine (port of egobox_tpu/ego/solver.py).
 
 The outer ask/eval/tell loop stays in Python (it calls the user's
 objective); the DoE and the bookkeeping live in numpy; every phase of an
 iteration (surrogate training for objective and constraints, the
 scaling-cloud evaluation and the constrained multistart infill
-optimization) runs on the solver's device. The design is fitted unpadded:
-nothing compiles per shape, so there is no bucket to pad to.
+optimization) runs on the solver's device.
+
+Two paths, chosen as egobox_tpu chooses them (``_fast_path_ok``):
+
+- the fused iteration (the default on the single-cluster GP path): the
+  design is padded to ``shape_bucket`` rows with a mask, every draw is made
+  on the host first, and the whole iteration is one program with no host
+  read (ego/fused_step.py). On the GPU it is a CUDA graph captured once
+  per signature and replayed, for designs of up to ``GRAPH_MAX_ROWS`` padded
+  rows (ego/graphs.py); the host fetches one packed row per iteration;
+- the unfused iteration (``EGOBOX_NO_FUSED_STEP=1``, and whatever the gate
+  refuses): phase after phase on the unpadded design.
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-clustered (MoE) surrogates, the fused / traced single-program iterations,
-the sigma-weight portfolio, CoEGO, and the derivative-free polish for
-function constraints that are host callbacks.
+clustered (MoE) surrogates (and so egobox_tpu's fused clustered
+iteration), the sigma-weight portfolio, CoEGO, and the derivative-free
+polish for function constraints that are host callbacks.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from .find_result import (
     find_best_result_index_from,
     is_feasible,
 )
+from .fused_step import fused_select_point, fused_select_points_q
+from .graphs import GraphCache
 from .infill_optim import (
     _eval_fcstrs,
     compute_scaling,
@@ -107,6 +118,23 @@ class SolverDraws:
 
     def fit_draws(self, seed: int):
         return gp_fit._fit_draws(seed)
+
+    def unit_lhs(self, n: int, nx: int) -> np.ndarray:
+        """(n, nx) maximin LHS in [0, 1]^nx."""
+        return lhs_normalized(self.generator, n, nx, LhsKind.MAXIMIN,
+                              torch.float64, "cpu").numpy()
+
+    def picker(self, nb: int, n_start: int, nx: int):
+        """The two draws of the traceable picker
+        (start_points.middle_picker_starts_traced): (nb,) uniform scores and
+        an (n_start, nx) maximin LHS in [0, 1]^nx."""
+        scores = torch.rand((nb,), generator=self.generator,
+                            dtype=torch.float64).numpy()
+        return scores, self.unit_lhs(n_start, nx)
+
+
+def _bucket(n: int, b: int) -> int:
+    return max(b, ((n + b - 1) // b) * b)
 
 
 def impute_failed_values(y_new: np.ndarray, y_ref: np.ndarray) -> np.ndarray:
@@ -189,6 +217,8 @@ class EgorSolver:
         self.last_models = None
         self.last_times = {}
         self._fcstr_probe_cache = {}
+        #: the captured graphs of the fused iteration and the traced run
+        self.graphs = GraphCache()
 
     def _cast(self, x: np.ndarray) -> np.ndarray:
         return self.cast_fn(x) if self.cast_fn is not None else x
@@ -200,8 +230,28 @@ class EgorSolver:
         return self._dtype or self._iter_dtype
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                               device=self.device)
+        """``a`` on the solver's device in its type. A host array goes by an
+        asynchronous copy: the host waits for nothing on the device."""
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+            if not a.flags.writeable:
+                a = a.copy()
+            a = torch.as_tensor(a)
+        return a.to(dtype=self.dtype).to(self.device, non_blocking=True)
+
+    def _pad(self, x: np.ndarray, y: np.ndarray, extra: int = 0):
+        """The design padded to the shape bucket (of n + ``extra`` rows),
+        with the mask of its active rows, on the solver's device."""
+        n = x.shape[0]
+        nb = _bucket(n + extra, self.config.shape_bucket)
+        xp = np.zeros((nb, x.shape[1]))
+        xp[:n] = x
+        yp = np.zeros((nb, y.shape[1]))
+        yp[:n] = y
+        mask = np.zeros(nb, dtype=bool)
+        mask[:n] = True
+        return (self._tensor(xp), self._tensor(yp),
+                torch.as_tensor(mask).to(self.device, non_blocking=True))
 
     # ------------------------------------------------------------------
     # helpers
@@ -332,7 +382,7 @@ class EgorSolver:
         )
         m = yt.shape[1]
         theta0s = state.theta_inits
-        if theta0s is None or theta0s.shape != (m, dim):
+        if theta0s is None or tuple(theta0s.shape) != (m, dim):
             if self.theta_init is not None:
                 theta0s = np.broadcast_to(
                     self.theta_init, (m, dim)
@@ -408,6 +458,162 @@ class EgorSolver:
         self._fcstr_probe_cache[key] = ok
         return ok
 
+    def _fast_path_ok(self, fcstrs) -> bool:
+        """egobox_tpu's gate of the fused iteration: the single-cluster GP
+        path with one regression and one correlation model, no CoEGO, no
+        portfolio, function constraints written in torch operations, and
+        q_points == 1 unless the GP recorder is on. ``EGOBOX_NO_FUSED_STEP``
+        selects the unfused path."""
+        gpc = self.config.gp_config
+        multi_combo = (
+            len(gpc.regr_names) > 1 or len(gpc.corr_names) > 1
+        )
+        q_ok = self.config.q_points == 1 or not os.environ.get(
+            "EGOR_USE_GP_RECORDER"
+        )
+        return (
+            q_ok
+            and (not fcstrs or self._fcstrs_traceable(fcstrs))
+            and gpc.n_clusters == 1
+            and not multi_combo
+            and self.config.coego_n_coop <= 1
+            and not os.environ.get("EGOR_USE_GP_VAR_PORTFOLIO")
+            and not os.environ.get("EGOBOX_NO_FUSED_STEP")
+        )
+
+    def _theta_setup(self, state: EgorState, m: int):
+        """Warm-start inits (m, dim) and the theta bounds, as tensors on the
+        solver's device; the inits are clipped inside the fused program."""
+        dim = self.spec.kpls_dim if self.spec.kpls_dim is not None else self.nx
+        theta0s = state.theta_inits
+        if theta0s is None or tuple(theta0s.shape) != (m, dim):
+            base = (self.theta_init if self.theta_init is not None
+                    else np.full((dim,), 0.1))
+            theta0s = np.broadcast_to(np.asarray(base), (m, dim)).copy()
+        tb = np.asarray(self.theta_bounds, dtype=float)
+        if tb.ndim == 1:
+            tb = np.broadcast_to(tb[None, :], (dim, 2))
+        return (self._tensor(theta0s), self._tensor(tb[:, 0]),
+                self._tensor(tb[:, 1]))
+
+    def _fused_statics(self, state: EgorState, crit, cstrat, fcstrs,
+                       optimize_theta: bool) -> dict:
+        cfg = self.config
+        nugget = self.spec.nugget
+        if nugget is None:
+            nugget = 100.0 * torch.finfo(self.dtype).eps
+        feasibility = state.feasibility or not os.environ.get(
+            "EGOR_USE_MAX_PROBA_OF_FEASIBILITY"
+        )
+        return dict(
+            corr=self.spec.corr, trend=self.spec.trend,
+            kpls_dim=self.spec.kpls_dim,
+            gp_n_start=self._gp_n_start(state),
+            gp_max_iters=self.spec.max_iters, fixed=not optimize_theta,
+            nugget=nugget, ls_batch=self.spec.ls_batch,
+            crit=crit, cstr_strategy=cstrat, n_cstr=cfg.n_cstr,
+            cstr_infill=cfg.cstr_infill, feasibility=feasibility,
+            optimizer=_OPT_NAME[cfg.infill_optimizer],
+            fcstr_fns=tuple(fcstrs),
+        )
+
+    def _select_next_point_fused(
+        self,
+        state: EgorState,
+        fmin: float,
+        xlimits: np.ndarray,
+        seed_xlimits: Optional[np.ndarray],
+        crit: str,
+        cstrat: str,
+        fcstrs: Sequence[Callable] = (),
+        qei: str = "KB",
+    ):
+        """The whole iteration as one program, one host fetch
+        (egobox_tpu's ``_select_next_point_fused``). It takes the draws in
+        the order of the unfused path (fit seed from ``state.rng``, scaling
+        cloud, multistart seeds), so the two paths see the same numbers.
+        For q_points > 1, step 0's seeds come from the host picker and every
+        later virtual step's from the traceable picker on the augmented
+        design."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        xt, yt = state.x_data, state.y_data
+        m = yt.shape[1]
+        q = cfg.q_points
+        xp, yp, mask = self._pad(xt, yt)
+        theta0s, t_lo, t_up = self._theta_setup(state, m)
+        optimize_theta = (state.iter % cfg.q_optmod) == 0
+        statics = self._fused_statics(state, crit, cstrat, fcstrs,
+                                      optimize_theta)
+        dim = theta0s.shape[1]
+        fit_seed = int(state.rng.integers(0, 2**31))
+        n_cloud = min(100 * self.nx, 1000)
+        fit_draws = self.draws.fit_draws(fit_seed)
+        seeds = ([fit_draws.lhs_seeds(statics["gp_n_start"], dim,
+                                      torch.float64, "cpu")
+                  for _ in range(q)] if statics["gp_n_start"] > 0 else None)
+        clouds = [self.draws.lhs(n_cloud, xlimits, LhsKind.MAXIMIN)
+                  for _ in range(q)]
+        starts = self._multistart_seeds(state, xt, xlimits, seed_xlimits)
+        n_cstr = cfg.n_cstr
+        n_fcstr = len(fcstrs)
+        inputs = dict(
+            xp=xp, yp=yp, mask=mask, theta0s=theta0s, theta_lo=t_lo,
+            theta_up=t_up, lo=self._tensor(xlimits[:, 0]),
+            hi=self._tensor(xlimits[:, 1]), fmin=self._tensor(fmin),
+            cstr_tols=self._tensor(state.cstr_tol[:n_cstr]),
+            fcstr_tols=(self._tensor(state.cstr_tol[n_cstr:n_cstr + n_fcstr])
+                        if n_fcstr else None),
+        )
+        key = (xp.shape, m, self.dtype, q, tuple(sorted(statics.items())))
+        if q == 1:
+            inputs.update(
+                fit_seeds=None if seeds is None else self._tensor(seeds[0]),
+                cloud=self._tensor(clouds[0]), starts=self._tensor(starts))
+            packed, models = self.graphs.run(
+                key, lambda **kw: fused_select_point(**kw, **statics),
+                inputs, xp.shape)
+            state.theta_inits = models.theta  # stays on the device
+            self.last_models = models
+            record_gp_models(cfg.outdir, state.iter, models)
+            arr = packed.double().cpu().numpy()  # the one host fetch
+            self.last_times = {"select": time.perf_counter() - t0,
+                               "graph": self.graphs.stats.last}
+            return arr[None, :self.nx], np.zeros((1, m)), float(-arr[self.nx])
+
+        use_middle = (
+            seed_xlimits is None
+            and xlimits is self.xlimits
+            and not os.environ.get(
+                "EGOR_DO_NOT_USE_MIDDLEPICKER_MULTISTARTER")
+        )
+        nbuf = xp.shape[0] + q - 1
+        picks = [self.draws.picker(nbuf, cfg.n_start, self.nx)
+                 for _ in range(q)]
+        i_min = int(np.argmin(state.y_data[:, 0]))
+        seed_box = seed_xlimits if seed_xlimits is not None else xlimits
+        inputs.update(
+            fit_seeds=None if seeds is None else self._tensor(np.stack(seeds)),
+            clouds=self._tensor(np.stack(clouds)),
+            starts0=self._tensor(starts),
+            pick_scores=self._tensor(np.stack([p[0] for p in picks])),
+            pick_fills=self._tensor(np.stack([p[1] for p in picks])),
+            y_best_row=self._tensor(state.y_data[i_min]),
+            seed_lo=self._tensor(seed_box[:, 0]),
+            seed_hi=self._tensor(seed_box[:, 1]),
+        )
+        key = key + (qei, use_middle)
+        packed, theta_last = self.graphs.run(
+            key, lambda **kw: fused_select_points_q(
+                **kw, q_points=q, qei=qei, use_middle=use_middle, **statics),
+            inputs, xp.shape)
+        state.theta_inits = theta_last  # stays on the device
+        arr = packed.double().cpu().numpy()  # the one host fetch
+        self.last_times = {"select": time.perf_counter() - t0,
+                           "graph": self.graphs.stats.last}
+        return (arr[:, :self.nx], arr[:, self.nx + 1:],
+                float(-arr[0, self.nx]))
+
     def select_next_points(
         self,
         state: EgorState,
@@ -445,6 +651,11 @@ class EgorSolver:
                 "derivative-free polish, which",
                 "native Nelder-Mead polish for host-callback constraints",
             )
+        if self._fast_path_ok(fcstrs):
+            fmin = float(state.y_data[state.best_index, 0])
+            return self._select_next_point_fused(
+                state, fmin, xlimits, seed_xlimits, crit, cstrat, fcstrs,
+                qei)
 
         surrogate_tols = self._tensor(state.cstr_tol[:n_cstr])
         n_fcstr = len(fcstrs)

@@ -8,10 +8,10 @@ every field stacks. ``predict_valvar_single`` / ``predict_valvar_cloud``
 evaluate all outputs at all points of a batch in one set of launches; the
 infill optimizer hands them its lanes x line-search trials as one batch.
 
-The fits run one output after the other, each output's multistart lanes in
-lockstep on a stack of thetas (``gp.fit.fit_gp_core`` decides by the
-design's size), on the unpadded design: ``mask`` is all ones, which fits
-exactly what egobox_tpu's padded and masked fit computes.
+The fits of all outputs run as one lockstep stack of outputs x restarts
+(``gp.fit.fit_gp_outputs``, in chunks the design's size sets), on the
+unpadded design: ``mask`` is all ones, which fits exactly what egobox_tpu's
+padded and masked fit computes. KPLS fits go output by output.
 """
 
 from __future__ import annotations
@@ -91,14 +91,15 @@ def train_gp_surrogates(
     ``optimize_theta=False`` reuses ``theta0s`` as fixed hyperparameters,
     the reference's q_optmod thinning (solver_impl.rs:643-645).
     ``active_theta`` restricts the optimization to a subset of theta
-    components. Every output's fit draws its restart seeds from its own
-    ``fit_draws(seed)``: all outputs see the same seeds, as under
-    egobox_tpu's vmap over outputs with one key.
+    components. The restart seeds come from one ``fit_draws(seed)``: all
+    outputs see the same seeds, as under egobox_tpu's vmap over outputs
+    with one key.
 
     A fit whose likelihood is not finite (in float32, a Gram the jitter
-    does not make positive definite for any restart) is repeated with a
-    100 times larger nugget, twice at most, as ``fit_gp`` does; the last
-    model is kept then, as egobox_tpu keeps its only one."""
+    does not make positive definite for any restart) is repeated, that
+    output alone, with a 100 times larger nugget, twice at most, as
+    ``fit_gp`` does; the last model is kept then, as egobox_tpu keeps its
+    only one."""
     n, nx = x.shape
     m = y_all.shape[1]
     dtype, device = x.dtype, x.device
@@ -125,23 +126,45 @@ def train_gp_surrogates(
     if nugget0 is None:
         nugget0 = 100.0 * torch.finfo(dtype).eps
 
-    models = []
-    for j in range(m):
-        nugget = nugget0
-        for _ in range(3):
-            model = gp_fit.fit_gp_core(
-                x, y_all[:, j:j + 1], mask, theta0s[j], lo, up, active_theta,
-                fit_draws(seed),
-                corr=spec.corr, trend=spec.trend, kpls_dim=spec.kpls_dim,
-                n_start=spec.n_start if n_start is None else n_start,
-                max_iters=spec.max_iters, fixed=not optimize_theta,
-                nugget=nugget, ls_batch=spec.ls_batch,
-            )
-            if bool(torch.isfinite(model.likelihood)):
-                break
-            nugget *= 100.0
-        models.append(model)
-    return stack_models(models)
+    ns = spec.n_start if n_start is None else n_start
+    fit_kw = dict(corr=spec.corr, trend=spec.trend, max_iters=spec.max_iters,
+                  fixed=not optimize_theta, ls_batch=spec.ls_batch)
+    if spec.kpls_dim is not None:
+        # KPLS weights depend on each output's data: output by output
+        def fit(cols, nugget):
+            return stack_models([
+                gp_fit.fit_gp_core(
+                    x, y_all[:, j:j + 1], mask, theta0s[j], lo, up,
+                    active_theta, fit_draws(seed), kpls_dim=spec.kpls_dim,
+                    n_start=ns, nugget=nugget, **fit_kw)
+                for j in cols])
+    else:
+        # the outputs x restarts as one stack; every output sees the same
+        # seeds
+        seeds = (fit_draws(seed).lhs_seeds(ns, dim, dtype, device)
+                 if optimize_theta and ns > 0 else None)
+
+        def fit(cols, nugget):
+            return gp_fit.fit_gp_outputs(
+                x, y_all[:, cols], mask, theta0s[cols], lo, up, active_theta,
+                seeds, n_start=0 if seeds is None else ns, nugget=nugget,
+                **fit_kw)
+
+    cols = list(range(m))
+    models = fit(cols, nugget0)
+    outs = [gp_fit.output_model(models, j) for j in cols]
+    nugget = nugget0
+    for _ in range(2):
+        bad = [j for j, ok in zip(cols, torch.isfinite(models.likelihood)
+                                  .tolist()) if not ok]
+        if not bad:
+            break
+        nugget *= 100.0
+        cols = bad
+        models = fit(cols, nugget)
+        for i, j in enumerate(cols):
+            outs[j] = gp_fit.output_model(models, i)
+    return stack_models(outs)
 
 
 def _check_container(models) -> None:
@@ -199,13 +222,13 @@ def _corr_to_train(models: GpModel, xnorm: torch.Tensor) -> torch.Tensor:
 
 
 def _predict_valvar(models: GpModel, x: torch.Tensor):
-    """x (p, nx) -> (means, variances), each (m, p): ``gp.predict_valvar``
-    of every output at once (triangular solves and products broadcast over
-    the output axis)."""
+    """x (p, nx), or one batch per output (m, p, nx) -> (means, variances),
+    each (m, p): ``gp.predict_valvar`` of every output at once (triangular
+    solves and products broadcast over the output axis)."""
     m = models.x_norm.shape[0]
-    p, nx = x.shape
-    xnorm = (x[None, :, :] - models.x_mean[:, None, :]) \
-        / models.x_std[:, None, :]
+    p, nx = x.shape[-2:]
+    xs = x if x.ndim == 3 else x[None, :, :]
+    xnorm = (xs - models.x_mean[:, None, :]) / models.x_std[:, None, :]
     r = _corr_to_train(models, xnorm)  # (m, p, n)
     f = trend_basis(models.trend, xnorm.reshape(m * p, nx)).reshape(m, p, -1)
     y = f @ models.beta + r @ models.gamma  # (m, p, 1)

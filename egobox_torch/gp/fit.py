@@ -6,8 +6,11 @@
   likelihood with its analytic adjoint; egobox_tpu advances them as one
   vmapped program, and so does the port (lockstep lanes on a stack of
   thetas) up to ``_LANES_MAX_POINTS`` points and ``_LANES_BYTES`` of
-  stacked factorizations; above, and on the residual-reuse and masked
-  paths, lane after lane;
+  stacked factorizations; above, and on the residual-reuse path, lane
+  after lane;
+- ``fit_gp_outputs`` fits the columns of a multi-output design at once: the
+  outputs x restarts are one lockstep stack, as egobox_tpu's
+  ``jax.vmap(fit_one)`` over outputs is one program;
 - ThetaTuning Fixed/Full/Partial maps to ``theta_fixed`` and an ``active``
   mask whose inactive bounds collapse to the init value;
 - ``mask`` fits the active rows of a padded design exactly;
@@ -22,6 +25,7 @@ tests replace that function to hand in JAX's draws.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -121,130 +125,291 @@ def fit_gp_core(
     residual_api: bool = False,
     grad_probes: int = 0,
     tr: bool = False,
+    graph_safe: bool = False,
 ) -> GpModel:
     """One multistart MLE on a (possibly padded) design; the restarts are
     the init (or init stack) plus ``n_start`` maximin-LHS seeds.
 
-    The restarts are solved at once, as lanes of the lockstep L-BFGS on a
-    stack of thetas (one evaluation takes every lane and every line-search
-    trial; the same iterates as lane after lane), when the objective is the
-    plain one (no residual reuse, no stochastic gradient), the design is
-    unmasked and within ``_LANES_MAX_POINTS`` points and ``_LANES_BYTES``
-    of stacked factorizations. Small designs are bound by launches, which
-    this divides by the number of lanes and trials."""
+    The plain objective (no residual reuse, no stochastic gradient) is the
+    one-output case of ``fit_gp_outputs``: the restarts run as lockstep
+    lanes on a stack of thetas, in chunks the design's size sets. The
+    residual-reuse and stochastic-gradient objectives take one theta: their
+    restarts run lane after lane. ``graph_safe``: the form without host
+    reads (optim/lbfgsb.py), for a CUDA graph."""
+    if theta0.ndim == 2 and n_start > 0 and not fixed:
+        raise ValueError(
+            "fit_gp_core: a (k, dim) theta0 init stack requires "
+            "n_start=0 (LHS seeding and multi-init are exclusive)"
+        )
+    if graph_safe and (residual_api or grad_probes):
+        raise ValueError("fit_gp_core: graph_safe takes the plain "
+                         "objective (no residual reuse, no probes)")
     dtype = x.dtype
     m = mask.to(dtype)
-    n_obs = torch.sum(m)
+    w_star = None
+    if kpls_dim is not None:
+        w_star = pls_rotations(x * m[:, None], y * m[:, None], kpls_dim)
 
+    if fixed or not (residual_api or grad_probes):
+        seeds = None
+        if not fixed and theta0.ndim == 1 and n_start > 0:
+            seeds = draws.lhs_seeds(n_start, theta0.shape[-1], dtype,
+                                    x.device)
+        return output_model(fit_gp_outputs(
+            x, y, mask, theta0[None], bounds_lo, bounds_up, active, seeds,
+            w_star=w_star, corr=corr, trend=trend,
+            n_start=0 if seeds is None else n_start, max_iters=max_iters,
+            fixed=fixed, nugget=nugget, ls_batch=ls_batch,
+            graph_safe=graph_safe), 0)
+
+    n_obs = torch.sum(m)
     x_mean, x_std = _masked_norm(x, m, n_obs)
     y_mean, y_std = _masked_norm(y, m, n_obs)
     # padded rows pinned to zero in normalized space
     x_norm = ((x - x_mean) / x_std) * m[:, None]
     y_norm = ((y - y_mean) / y_std) * m[:, None]
-
-    w_star = None
-    if kpls_dim is not None:
-        w_star = pls_rotations(x * m[:, None], y * m[:, None], kpls_dim)
-
-    def model_at(theta, rlf, inner):
-        return _model_from_inner(x_norm, x_mean, x_std, y_mean, y_std,
-                                 theta, w_star, inner, rlf, mask, corr,
-                                 trend)
-
-    if fixed:
-        theta_opt = theta0
+    lo = torch.log10(bounds_lo)
+    up = torch.log10(bounds_up)
+    t0 = torch.log10(theta0)
+    # inactive components: collapse the box so projection pins them
+    lo = torch.where(active, lo, t0)
+    up = torch.where(active, up, t0)
+    if theta0.ndim == 2:
+        inits = t0
+    elif n_start > 0:
+        seeds = draws.lhs_seeds(n_start, theta0.shape[-1], dtype, x.device)
+        seeds = lo[None, :] + seeds * (up - lo)[None, :]
+        inits = torch.cat([t0[None, :], seeds], dim=0)
     else:
-        dim = theta0.shape[-1]
-        lo = torch.log10(bounds_lo)
-        up = torch.log10(bounds_up)
-        t0 = torch.log10(theta0)
-        # inactive components: collapse the box so projection pins them
-        lo = torch.where(active, lo, t0)
-        up = torch.where(active, up, t0)
-        if theta0.ndim == 2:
-            if n_start > 0:
-                raise ValueError(
-                    "fit_gp_core: a (k, dim) theta0 init stack requires "
-                    "n_start=0 (LHS seeding and multi-init are exclusive)"
-                )
-            inits = t0
-        elif n_start > 0:
-            seeds = draws.lhs_seeds(n_start, dim, dtype, x.device)
-            seeds = lo[None, :] + seeds * (up - lo)[None, :]
-            inits = torch.cat([t0[None, :], seeds], dim=0)
-        else:
-            inits = t0[None, :]
-        lo_l = torch.broadcast_to(lo, inits.shape)
-        up_l = torch.broadcast_to(up, inits.shape)
+        inits = t0[None, :]
+    lo_l = torch.broadcast_to(lo, inits.shape)
+    up_l = torch.broadcast_to(up, inits.shape)
 
-        n = x.shape[0]
-        stacked = inits.shape[0] * max(ls_batch, 1) * n * n * x.element_size()
-        if (not residual_api and not grad_probes
-                and n <= _LANES_MAX_POINTS and 4 * stacked <= _LANES_BYTES
-                and bool(torch.all(mask))):
-            neg_rlf_theta = make_neg_reduced_likelihood(
-                corr, trend, x_norm, y_norm, y_std, w_star, nugget)
-            lanes = minimize_lbfgsb(
-                lambda tt: neg_rlf_theta(10.0**tt), inits, lo_l, up_l,
-                max_iters=max_iters, ls_batch=ls_batch, final_grad=False,
-            )
-            # the first lowest objective wins, as below
-            theta_opt = 10.0 ** lanes.x[torch.argmin(lanes.fun)]
-            rlf, inner = reduced_likelihood(
-                corr, trend, x_norm, y_norm, y_std, theta_opt, w_star,
-                nugget, mask)
-            return model_at(theta_opt, rlf, inner)
-
-        if residual_api:
-            # value-only trials; the accepted trial's factorization feeds
-            # the adjoint and becomes the final model state
-            fun_and_res, grad_from_res = make_neg_rlf_residual_api(
-                corr, trend, x_norm, y_norm, y_std, w_star, nugget, mask,
-                stoch_probes=grad_probes,
-            )
-            if tr:
-                def solve(t, lo, up):
-                    return minimize_tr(
-                        t, lo, up, fun_and_res=fun_and_res,
-                        grad_from_res=grad_from_res, max_iters=max_iters,
-                        final_grad=False,
-                    )
-            else:
-                def solve(t, lo, up):
-                    return minimize_lbfgsb(
-                        None, t, lo, up, max_iters=max_iters,
-                        ls_batch=ls_batch, fun_and_res=fun_and_res,
-                        grad_from_res=grad_from_res, final_grad=False,
-                    )
-        else:
-            neg_rlf_theta = make_neg_reduced_likelihood(
-                corr, trend, x_norm, y_norm, y_std, w_star, nugget, mask,
-                stoch_probes=grad_probes,
-            )
-
+    if residual_api:
+        # value-only trials; the accepted trial's factorization feeds
+        # the adjoint and becomes the final model state
+        fun_and_res, grad_from_res = make_neg_rlf_residual_api(
+            corr, trend, x_norm, y_norm, y_std, w_star, nugget, mask,
+            stoch_probes=grad_probes,
+        )
+        if tr:
             def solve(t, lo, up):
-                return minimize_lbfgsb(
-                    lambda tt: neg_rlf_theta(10.0**tt), t, lo, up,
-                    max_iters=max_iters, ls_batch=ls_batch,
+                return minimize_tr(
+                    t, lo, up, fun_and_res=fun_and_res,
+                    grad_from_res=grad_from_res, max_iters=max_iters,
                     final_grad=False,
                 )
+        else:
+            def solve(t, lo, up):
+                return minimize_lbfgsb(
+                    None, t, lo, up, max_iters=max_iters,
+                    ls_batch=ls_batch, fun_and_res=fun_and_res,
+                    grad_from_res=grad_from_res, final_grad=False,
+                )
+    else:
+        neg_rlf_theta = make_neg_reduced_likelihood(
+            corr, trend, x_norm, y_norm, y_std, w_star, nugget, mask,
+            stoch_probes=grad_probes,
+        )
 
-        # lanes one after the other; the first lowest objective wins, as
-        # argmin does over the vmapped lanes
-        best = None
-        for i in range(inits.shape[0]):
-            lane = solve(inits[i], lo_l[i], up_l[i])
-            if best is None or float(lane.fun) < float(best.fun):
-                best = lane
-        theta_opt = 10.0**best.x
-        if residual_api:
-            _, rlf, inner = best.res
-            return model_at(theta_opt, rlf, inner)
+        def solve(t, lo, up):
+            return minimize_lbfgsb(
+                lambda tt: neg_rlf_theta(10.0**tt), t, lo, up,
+                max_iters=max_iters, ls_batch=ls_batch, final_grad=False,
+            )
+
+    # lanes one after the other; the first lowest objective wins, as
+    # argmin does over the lockstep lanes
+    best = None
+    for i in range(inits.shape[0]):
+        lane = solve(inits[i], lo_l[i], up_l[i])
+        if best is None or float(lane.fun) < float(best.fun):
+            best = lane
+    theta_opt = 10.0**best.x
+    if residual_api:
+        _, rlf, inner = best.res
+    else:
+        rlf, inner = reduced_likelihood(
+            corr, trend, x_norm, y_norm, y_std, theta_opt, w_star, nugget,
+            mask)
+    return _model_from_inner(x_norm, x_mean, x_std, y_mean, y_std,
+                             theta_opt, w_star, inner, rlf, mask, corr,
+                             trend)
+
+
+def lanes_per_chunk(n: int, ls_batch: int, element_size: int) -> int:
+    """How many restarts of a fit on n points advance as one lockstep
+    stack (one evaluation takes all their line-search trials): from shapes
+    alone. Up to ``_LANES_MAX_POINTS`` points, as many as keep 4 stacked
+    (lanes x trials, n, n) arrays within ``_LANES_BYTES``; above, one."""
+    if n > _LANES_MAX_POINTS:
+        return 1
+    lane = 4 * max(ls_batch, 1) * n * n * element_size
+    return max(1, _LANES_BYTES // lane)
+
+
+def output_model(models: GpModel, j: int) -> GpModel:
+    """Output ``j`` of a stacked container, as ``fit_gp_core`` returns it."""
+    return dataclasses.replace(models, **{
+        f.name: getattr(models, f.name)[j]
+        for f in dataclasses.fields(models)
+        if isinstance(getattr(models, f.name), torch.Tensor)})
+
+
+def fit_gp_outputs(
+    x: torch.Tensor,  # (n, nx), or (P, n, nx)
+    ys: torch.Tensor,  # (n, m), or (P, n, m)
+    mask: torch.Tensor,  # (n,) bool, or (P, n)
+    theta0s: torch.Tensor,  # (m, dim) or (m, k, dim), or (P, m, dim)
+    bounds_lo: torch.Tensor,  # (dim,)
+    bounds_up: torch.Tensor,  # (dim,)
+    active: torch.Tensor,  # (dim,) bool
+    seeds: Optional[torch.Tensor],  # (n_start, dim) LHS in [0, 1], or (P, ..)
+    *,
+    w_star: Optional[torch.Tensor] = None,  # (nx, kpls_dim), one output
+    corr: str = "squared_exponential",
+    trend: str = "constant",
+    n_start: int = GP_DEFAULT_N_START,
+    max_iters: int = 50,
+    fixed: bool = False,
+    nugget: float = 0.0,
+    ls_batch: int = 0,
+    graph_safe: bool = False,
+) -> GpModel:
+    """A multistart MLE of every column of ``ys`` on one (padded) design,
+    the m outputs x restarts as one lockstep stack of thetas (egobox_tpu's
+    ``jax.vmap(fit_one)`` over outputs, ego/fused_step.py:85-92). Every
+    output's restarts are its init (or its (k, dim) init stack, with
+    ``n_start=0``) and the same ``seeds`` (one key for all outputs there
+    too); the first lowest objective of an output's restarts wins. Returns
+    the stacked container of ego/surrogates.py: every field carries a
+    leading output axis.
+
+    The stack advances in chunks of ``lanes_per_chunk`` lanes, one
+    lockstep L-BFGS after the other (a chunk count fixed by the shapes, so
+    the form without host reads stays one program): the whole stack on a
+    small design, one restart at a time above ``_LANES_MAX_POINTS`` points
+    (with host reads allowed, on one theta, as lane after lane runs).
+
+    With a leading problem axis P (EgorBatch), every problem has its own
+    design, data and seeds, the P x m x (1 + n_start) restarts are one
+    stack, and the container's leading axis is the P x m outputs, problem
+    after problem. ``w_star`` (KPLS weights) takes one output of one
+    problem."""
+    single = x.ndim == 2
+    if single:
+        x, ys, mask, theta0s = x[None], ys[None], mask[None], theta0s[None]
+        seeds = None if seeds is None else seeds[None]
+    dtype = x.dtype
+    n_prob, n, nx = x.shape
+    m_out = ys.shape[2]
+    n_lead = n_prob * m_out
+    if w_star is not None and n_lead != 1:
+        raise ValueError("fit_gp_outputs: KPLS weights take one output")
+    mk = mask.to(dtype)
+    n_obs = torch.sum(mk, dim=-1)[:, None]
+
+    def norm(v):
+        mean = torch.sum(v * mk[..., None], dim=-2) / n_obs
+        var = torch.sum(((v - mean[:, None]) ** 2) * mk[..., None],
+                        dim=-2) / torch.clamp(n_obs - 1.0, min=1.0)
+        std = torch.sqrt(var)
+        return mean, torch.where(std <= 0, torch.ones_like(std), std)
+
+    x_mean, x_std = norm(x)  # (P, nx)
+    y_mean, y_std = norm(ys)  # (P, m)
+    # padded rows pinned to zero in normalized space
+    x_norm = ((x - x_mean[:, None]) / x_std[:, None]) * mk[..., None]
+    # (P * m, n, 1): output after output, problem after problem
+    y_norm = (((ys - y_mean[:, None]) / y_std[:, None]) * mk[..., None]
+              ).transpose(1, 2).reshape(n_lead, n, 1)
+    y_std = y_std.reshape(n_lead)
+
+    def per_lane(v, lanes):
+        """The design of each problem for its ``lanes`` lanes (a single
+        problem's design is shared as it is)."""
+        if single:
+            return v[0]
+        return v[:, None].expand((n_prob, lanes) + v.shape[1:]).reshape(
+            (n_prob * lanes,) + v.shape[1:])
+
+    if fixed:
+        theta_opt = theta0s.reshape(n_lead, -1)
+    else:
+        dim = theta0s.shape[-1]
+        t0 = torch.log10(theta0s)
+        if t0.ndim == 3:
+            t0 = t0[:, :, None, :]  # (P, m, 1, dim): one init per output
+        # inactive components: collapse the box so projection pins them
+        lo = torch.where(active, torch.log10(bounds_lo), t0)
+        up = torch.where(active, torch.log10(bounds_up), t0)
+        inits = t0
+        if n_start > 0:
+            sd = lo + seeds[:, None] * (up - lo)
+            inits = torch.cat([inits, sd], dim=2)
+        k = inits.shape[2]
+        shape = (n_lead * k, dim)
+        lo_l = torch.broadcast_to(lo, inits.shape).reshape(shape)
+        up_l = torch.broadcast_to(up, inits.shape).reshape(shape)
+        inits = inits.reshape(shape)
+        y_lanes = y_norm[:, None].expand((n_lead, k) + y_norm.shape[1:]
+                                         ).reshape((-1,) + y_norm.shape[1:])
+        std_lanes = y_std[:, None].expand(n_lead, k).reshape(-1)
+        x_lanes = per_lane(x_norm, m_out * k)
+        mask_lanes = per_lane(mask, m_out * k)
+        chunk = lanes_per_chunk(n, ls_batch, x.element_size())
+        xs, funs = [], []
+        for s in range(0, shape[0], chunk):
+            if chunk == 1 and not graph_safe:
+                # one restart: the one-theta objective and L-BFGS, as lane
+                # after lane has always run
+                neg_rlf_theta = make_neg_reduced_likelihood(
+                    corr, trend, x_lanes if single else x_lanes[s],
+                    y_lanes[s], std_lanes[s:s + 1], w_star, nugget,
+                    mask_lanes if single else mask_lanes[s])
+                lane = minimize_lbfgsb(
+                    lambda tt: neg_rlf_theta(10.0**tt), inits[s], lo_l[s],
+                    up_l[s], max_iters=max_iters, ls_batch=ls_batch,
+                    final_grad=False,
+                )
+                xs.append(lane.x[None])
+                funs.append(lane.fun.reshape(1))
+                continue
+            sl = slice(s, s + chunk)
+            neg_rlf_theta = make_neg_reduced_likelihood(
+                corr, trend, x_lanes if single else x_lanes[sl],
+                y_lanes[sl], std_lanes[sl], w_star, nugget,
+                mask_lanes if single else mask_lanes[sl])
+            lanes = minimize_lbfgsb(
+                lambda tt: neg_rlf_theta(10.0**tt), inits[sl], lo_l[sl],
+                up_l[sl], max_iters=max_iters, ls_batch=ls_batch,
+                final_grad=False, graph_safe=graph_safe,
+            )
+            xs.append(lanes.x)
+            funs.append(lanes.fun)
+        xs = xs[0] if len(xs) == 1 else torch.cat(xs)
+        funs = funs[0] if len(funs) == 1 else torch.cat(funs)
+        best = torch.argmin(funs.reshape(n_lead, k), dim=1)
+        xs = xs.reshape(n_lead, k, dim)
+        theta_opt = 10.0 ** xs[torch.arange(n_lead, device=x.device), best]
 
     rlf, inner = reduced_likelihood(
-        corr, trend, x_norm, y_norm, y_std, theta_opt, w_star, nugget, mask
+        corr, trend, per_lane(x_norm, m_out), y_norm, y_std, theta_opt,
+        w_star, nugget, per_lane(mask, m_out))
+
+    def per_output(v):
+        return v[:, None].expand((n_prob, m_out) + v.shape[1:]).reshape(
+            (n_lead,) + v.shape[1:])
+
+    return GpModel(
+        x_norm=per_output(x_norm), x_mean=per_output(x_mean),
+        x_std=per_output(x_std), y_mean=y_mean.reshape(n_lead, 1),
+        y_std=y_std[:, None], theta=theta_opt,
+        w_star=None if w_star is None else w_star[None], beta=inner.beta,
+        gamma=inner.gamma, r_chol=inner.r_chol, ft=inner.ft,
+        ft_qr_r=inner.ft_qr_r, sigma2=inner.sigma2, likelihood=rlf,
+        mask=per_output(mask), corr=corr, trend=trend,
     )
-    return model_at(theta_opt, rlf, inner)
 
 
 def _fit_mf_fused(

@@ -11,7 +11,11 @@ analytic likelihood adjoint (port of egobox_tpu/gp/likelihood.py).
   closed-form trace contraction evaluated from the kept factorization;
 - ``theta`` is one vector (dim,) or a stack (b, dim): the lanes and
   line-search trials of a multistart on a small design go through one
-  evaluation, every (n, n) quantity carrying the leading axis.
+  evaluation, every (n, n) quantity carrying the leading axis. A stack may
+  come with a mask, and with its own data per theta: ``y_norm`` (b, n, 1)
+  and ``y_std`` (b,) (the outputs x lanes of one EGO iteration share the
+  design, not the data), ``x_norm`` (b, n, nx) and ``mask`` (b, n) (the
+  problems of a batch have designs of their own).
 """
 
 from __future__ import annotations
@@ -46,8 +50,10 @@ def _cholesky(r: torch.Tensor) -> torch.Tensor:
       Cholesky whose panels run the K2 kernel (ops/chol_kernel.py), trailing
       GEMMs at ``prec``.
 
-    Matrices with n <= 4096 always take the native path. egobox_tpu's
-    ``blk:`` variant is not ported and raises. A non-PD R gives NaN.
+    Matrices with n <= 4096 always take the native path; above, a stack
+    of matrices goes through the K2 driver one matrix after the other.
+    egobox_tpu's ``blk:`` variant is not ported and raises. A non-PD R
+    gives NaN.
     """
     spec = os.environ.get("EGOBOX_CHOL", "native")
     parts = spec.split(":")
@@ -61,6 +67,10 @@ def _cholesky(r: torch.Tensor) -> torch.Tensor:
         )
     if spec == "native" or r.shape[-1] <= _CHOL_NATIVE_MAX:
         return cholesky_nan(r)
+    if r.ndim > 2:
+        n = r.shape[-1]
+        return torch.stack([_cholesky(m) for m in r.reshape(-1, n, n)]
+                           ).reshape(r.shape)
     return panel_cholesky(r, block=int(parts[1]), precision=parts[2])
 
 
@@ -80,50 +90,67 @@ class GpInnerParams(NamedTuple):
 _STACK_BUDGET = 32_000_000
 
 
+def _lead(v: torch.Tensor, lead) -> torch.Tensor:
+    """A scalar-like ``v`` as a 0-d tensor; one value per theta of a stack
+    shaped ``lead``."""
+    return v.reshape(()) if v.numel() == 1 else v.reshape(lead)
+
+
 def _gram_stack(corr, x_norm, thetas, w_star):
-    """R(x, x) for every row of ``thetas`` (b, dim): (b, n, n). sqexp takes
-    the matmul expansion; the L1 family launches K1 theta by theta where
+    """R(x, x) for every row of ``thetas`` (b, dim): (b, n, n), on one
+    design x_norm (n, nx) or one per theta (b, n, nx). sqexp takes the
+    matmul expansion; the L1 family launches K1 theta by theta where
     ``_takes_k1`` says so (large float32 designs on the GPU) and broadcasts
     the log-space formula over chunks of the stack elsewhere; KPLS weights
     go theta by theta through ``corr_cross``."""
     b = thetas.shape[0]
-    n, nx = x_norm.shape
+    n, nx = x_norm.shape[-2:]
+    per_theta = x_norm.ndim == 3
     if corr == "squared_exponential":
         if w_star is None:
             c = thetas**2
         else:
             c = torch.sum((thetas[:, None, :] * w_star) ** 2, dim=2)
-        a = x_norm[None] * torch.sqrt(c)[:, None, :]
+        a = (x_norm if per_theta else x_norm[None]) * torch.sqrt(c)[:, None, :]
         a2 = torch.sum(a * a, dim=2)
         sq = torch.clamp(a2[:, :, None] + a2[:, None, :] - 2.0 * (a @ a.mT),
                          min=0.0)
         return torch.exp(-0.5 * sq)
-    if w_star is not None or _takes_k1(corr, x_norm, x_norm, thetas[0], None):
+    x_of = (lambda i: x_norm[i]) if per_theta else (lambda i: x_norm)
+    if w_star is not None or _takes_k1(corr, x_of(0), x_of(0), thetas[0],
+                                       None):
         return torch.stack([
-            corr_cross(corr, x_norm, x_norm, thetas[i], w_star)
+            corr_cross(corr, x_of(i), x_of(i), thetas[i], w_star)
             for i in range(b)])
-    dabs = torch.abs(x_norm[:, None, :] - x_norm[None, :, :])[None]
     step = max(1, _STACK_BUDGET // max(1, n * n * nx))
-    return torch.cat([
-        torch.exp(_log_corr_terms(corr, dabs,
-                                  thetas[s:s + step, None, None, :], True))
-        for s in range(0, b, step)])
+    if not per_theta:
+        dabs = torch.abs(x_norm[:, None, :] - x_norm[None, :, :])[None]
+    out = []
+    for s in range(0, b, step):
+        if per_theta:
+            xs = x_norm[s:s + step]
+            dabs = torch.abs(xs[:, :, None, :] - xs[:, None, :, :])
+        out.append(torch.exp(_log_corr_terms(
+            corr, dabs, thetas[s:s + step, None, None, :], True)))
+    return torch.cat(out)
 
 
 def _build_r(corr, x_norm, theta, w_star, nugget, mask):
     """Assemble the regularized correlation matrix R, (n, n) for one theta
-    and (b, n, n) for a stack of them (no mask then).
+    and (b, n, n) for a stack of them.
 
     The jitter is ``nugget`` times the largest Gershgorin row sum of R
     (not differentiated): it keeps chol(R) well-posed for any theta while
-    leaving well-conditioned fits (row sums ~ 1) untouched. With a mask the
-    padded block is the identity. The diagonal is written in place on the
-    fresh Gram tensor. For one theta and no mask the row sums come with the
-    Gram (from the K1 kernel where it builds it)."""
+    leaving well-conditioned fits (row sums ~ 1) untouched. With a mask
+    ((n,), or (b, n) for a stack) the padded block is the identity. The
+    diagonal is written in place on the fresh Gram tensor. For one theta
+    and no mask the row sums come with the Gram (from the K1 kernel where
+    it builds it)."""
     if theta.ndim == 2:
-        if mask is not None:
-            raise ValueError("a stack of thetas takes an unmasked design")
         r = _gram_stack(corr, x_norm, theta, w_star)
+        if mask is not None:
+            m = mask.to(r.dtype)
+            r.mul_(m[..., :, None] * m[..., None, :])
         torch.diagonal(r, dim1=-2, dim2=-1).fill_(1.0)  # exact unit diagonal
         sums = torch.sum(torch.abs(r), dim=-1)
     elif mask is None:
@@ -165,9 +192,11 @@ def reduced_likelihood(
     ``mask`` (n,) bool marks active rows (None = all active). The likelihood
     is the reference's ``-n (log10 sigma2 + log10 det(R)^{2/n})``. With
     ``theta`` of shape (b, dim) the likelihood is (b,) and every field of
-    the inner parameters carries the leading axis.
+    the inner parameters carries the leading axis; ``y_norm`` (b, n, 1),
+    ``y_std`` (b,), ``x_norm`` (b, n, nx) and ``mask`` (b, n) may then give
+    each theta its own data.
     """
-    n = x_norm.shape[0]
+    n = x_norm.shape[-2]
     dtype = x_norm.dtype
     r = _build_r(corr, x_norm, theta, w_star, nugget, mask)
     lead = r.shape[:-2]
@@ -175,15 +204,15 @@ def reduced_likelihood(
     fx = trend_basis(trend, x_norm)
     if mask is not None:
         m = mask.to(dtype)
-        fx = fx * m[:, None]
-        y_norm = y_norm * m[:, None]
-        n_obs = torch.sum(m)
+        fx = fx * m[..., None]
+        y_norm = y_norm * m[..., None]
+        n_obs = torch.sum(m, dim=-1)
     else:
-        n_obs = torch.tensor(float(n), dtype=dtype, device=x_norm.device)
+        n_obs = float(n)
 
     l_chol = _cholesky(r)
     del r
-    ft = _solve_lower(l_chol, fx.expand(lead + fx.shape))
+    ft = _solve_lower(l_chol, fx.expand(lead + fx.shape[-2:]))
     # GLS normal equations via the (p, p) Gram of Ft: the R factor of
     # qr(Ft) up to signs
     c = cholesky_nan(ft.mT @ ft)  # lower; R_qr = c.mT
@@ -194,7 +223,7 @@ def reduced_likelihood(
     cond_ok = (torch.amin(dq, dim=-1)
                / torch.clamp(torch.amax(dq, dim=-1), min=1e-300)) > 1e-10
 
-    yt = _solve_lower(l_chol, y_norm.expand(lead + y_norm.shape))
+    yt = _solve_lower(l_chol, y_norm.expand(lead + y_norm.shape[-2:]))
     fty = ft.mT @ yt
     beta = _solve_upper(c.mT, _solve_lower(c, fty))
     rho = yt - ft @ beta
@@ -209,7 +238,7 @@ def reduced_likelihood(
                       torch.full_like(rlf, -float("inf")))
 
     inner = GpInnerParams(
-        sigma2=sigma2_norm * (y_std.reshape(()) ** 2),
+        sigma2=sigma2_norm * (_lead(y_std, lead) ** 2),
         beta=beta,
         gamma=gamma,
         r_chol=l_chol,
@@ -223,12 +252,17 @@ def _sqexp_dphi(c, x_norm, theta, w_star):
     """Closed-form trace contraction for the squared-exponential kernel:
     phi(theta) = sum C o log r = -1/2 sum_k c_k(theta) S_k with
     S_k = sum_ij C_ij (x_ik - x_jk)^2, as three matmul-shaped reductions
-    (c (..., n, n), theta (..., dim))."""
+    (c (..., n, n), theta (..., dim), x_norm (n, nx) or (..., n, nx))."""
     u = torch.sum(c, dim=-1)  # C 1
     v = torch.sum(c, dim=-2)  # 1^T C
     x2 = x_norm * x_norm
     w = c @ x_norm
-    s = u @ x2 + v @ x2 - 2.0 * torch.sum(x_norm * w, dim=-2)  # (..., nx)
+    if x_norm.ndim == 2:
+        s = u @ x2 + v @ x2 - 2.0 * torch.sum(x_norm * w, dim=-2)
+    else:
+        s = ((u[..., None, :] @ x2)[..., 0, :]
+             + (v[..., None, :] @ x2)[..., 0, :]
+             - 2.0 * torch.sum(x_norm * w, dim=-2))  # (..., nx)
     if w_star is None:
         return -theta * s
     # c_k = sum_l theta_l^2 w_kl^2 -> dphi/dtheta_l = -theta_l sum_k w_kl^2 S_k
@@ -250,11 +284,12 @@ def _dlog_term(name: str, u: torch.Tensor) -> torch.Tensor:
 def _l1_dphi(name, c, x_norm, theta, w_star):
     """sum_ij C_ij d log r_ij / d theta for absexp / Matern, in closed form
     per row block: no (n, n, nx) tensor is ever held. ``c`` (..., n, n) and
-    ``theta`` (..., dim) share their leading axis.
+    ``theta`` (..., dim) share their leading axis, and so does ``x_norm``
+    when it is (..., n, nx) (one design per theta, identity weights).
 
     With u_jl = |d_j| theta_l |w_jl| (u_j = |d_j| theta_j without KPLS),
     d log r / d theta_l = sum_j term'(u_jl) |d_j| |w_jl|."""
-    n, nx = x_norm.shape
+    n, nx = x_norm.shape[-2:]
     per_pair = nx * (1 if w_star is None else w_star.shape[1])
     if theta.ndim == 1:
         rows = max(1, _DENSE_BUDGET // max(1, n * per_pair))
@@ -267,7 +302,8 @@ def _l1_dphi(name, c, x_norm, theta, w_star):
         thw = (theta[..., None, :] * torch.abs(w_star))[..., None, None, :, :]
     out = torch.zeros_like(theta)
     for s in range(0, n, rows):
-        dabs = torch.abs(x_norm[s:s + rows, None, :] - x_norm[None, :, :])
+        dabs = torch.abs(x_norm[..., s:s + rows, None, :]
+                         - x_norm[..., None, :, :])
         cb = c[..., s:s + rows, :]
         if w_star is None:
             t = _dlog_term(name, dabs * thw) * dabs
@@ -349,7 +385,7 @@ def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
         return _sqexp_dphi_stoch(
             x_norm, w_star, theta, l_chol, gamma, sigma2_norm, stoch_probes
         )
-    n = x_norm.shape[0]
+    n = x_norm.shape[-2]
     eye = torch.eye(n, dtype=x_norm.dtype, device=x_norm.device)
     li = _solve_lower(l_chol, eye.expand(l_chol.shape))
     del eye
@@ -360,7 +396,7 @@ def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
     c.mul_(_build_r(corr, x_norm, theta, w_star, nugget, mask))
     if mask is not None:
         m = mask.to(x_norm.dtype)
-        c.mul_(m[:, None] * m[None, :])
+        c.mul_(m[..., :, None] * m[..., None, :])
     if corr == "squared_exponential":
         return _sqexp_dphi(c, x_norm, theta, w_star)
     return _l1_dphi(corr, c, x_norm, theta, w_star)
@@ -378,7 +414,8 @@ class _NegRlf(torch.autograd.Function):
             problem["y_norm"], problem["y_std"], theta, problem["w_star"],
             problem["nugget"], problem["mask"],
         )
-        sigma2_norm = inner.sigma2 / (problem["y_std"].reshape(()) ** 2)
+        sigma2_norm = inner.sigma2 / (
+            _lead(problem["y_std"], theta.shape[:-1]) ** 2)
         ctx.problem = problem
         ctx.save_for_backward(theta, inner.r_chol, inner.gamma, sigma2_norm)
         return -rlf
@@ -416,17 +453,37 @@ def make_neg_reduced_likelihood(
 
     with a = R^-1 (y - F beta) (== gamma). ``f`` takes one theta (dim,) or
     any stack (..., dim) -> (...): the lanes of a lockstep multistart and
-    all their line-search trials in one evaluation (unmasked designs the
-    library Cholesky takes; the stochastic gradient is one-theta only)."""
+    all their line-search trials in one evaluation (the stochastic gradient
+    is one-theta only).
+
+    Data per lane: with ``y_norm`` (L, n, 1) and ``y_std`` (L,) (and then
+    optionally ``x_norm`` (L, n, nx), ``mask`` (L, n)), ``f`` takes a stack
+    (L, ..., dim) whose leading axis is the lanes: every theta of lane l
+    (its line-search trials) is evaluated on lane l's data."""
     problem = dict(corr=corr, trend=trend, x_norm=x_norm, y_norm=y_norm,
                    y_std=y_std, w_star=w_star, nugget=nugget, mask=mask,
                    stoch_probes=stoch_probes)
+    per_lane = y_norm.ndim == 3
+
+    def lane_problem(trials):
+        """The per-lane data repeated for ``trials`` thetas per lane."""
+        def rep(v, per_lane_ndim):
+            if v is None or v.ndim < per_lane_ndim:
+                return v  # shared by every lane
+            return v[:, None].expand(
+                (v.shape[0], trials) + v.shape[1:]).reshape(
+                    (-1,) + v.shape[1:])
+        return dict(problem, y_norm=rep(y_norm, 3), x_norm=rep(x_norm, 3),
+                    mask=rep(mask, 2), y_std=rep(y_std.reshape(-1, 1), 2))
 
     def neg_rlf(theta):
         if theta.ndim <= 2:
             return _NegRlf.apply(theta, problem)
         lead = theta.shape[:-1]
-        out = _NegRlf.apply(theta.reshape(-1, theta.shape[-1]), problem)
+        prob = problem
+        if per_lane:
+            prob = lane_problem(int(torch.Size(lead[1:]).numel()))
+        out = _NegRlf.apply(theta.reshape(-1, theta.shape[-1]), prob)
         return out.reshape(lead)
 
     return neg_rlf

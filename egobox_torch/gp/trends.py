@@ -9,23 +9,23 @@ TREND_NAMES = ("constant", "linear", "quadratic")
 
 
 def trend_basis(name: str, x: torch.Tensor) -> torch.Tensor:
-    """Regression basis F(x) for x (n, nx) -> (n, p).
+    """Regression basis F(x) for x (..., n, nx) -> (..., n, p).
 
     - constant:  [1]                       (ref: mean_models.rs:37-53)
     - linear:    [1, x_1..x_nx]            (ref: mean_models.rs:63-82)
     - quadratic: [1, x, {x_i x_j, j >= i}] (ref: mean_models.rs:92-128)
     """
-    n, nx = x.shape
-    ones = torch.ones((n, 1), dtype=x.dtype, device=x.device)
+    nx = x.shape[-1]
+    ones = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
     if name == "constant":
         return ones
     if name == "linear":
-        return torch.cat([ones, x], dim=1)
+        return torch.cat([ones, x], dim=-1)
     if name == "quadratic":
         parts = [ones, x]
         for k in range(nx):
-            parts.append(x[:, k:] * x[:, k:k + 1])
-        return torch.cat(parts, dim=1)
+            parts.append(x[..., k:] * x[..., k:k + 1])
+        return torch.cat(parts, dim=-1)
     raise ValueError(f"unknown trend: {name}")
 
 

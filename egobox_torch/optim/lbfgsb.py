@@ -11,7 +11,13 @@ multistart lanes; a finished lane keeps its state while the others run.
 - lockstep lanes (``x0`` of shape (k, d)): every per-lane quantity (history,
   rho, valid, head, done, iteration count) is a tensor with a leading lane
   axis, all lanes advance in one set of launches, a finished lane keeps its
-  state, and the host reads one pair of flags per iteration.
+  state, and the host reads one pair of flags per iteration;
+- ``graph_safe=True``: the lockstep form with no host read at all, for a
+  CUDA graph. It runs fixed trip counts (every one of ``max_iters``
+  iterations, every deeper line-search round, every backtracking step) and
+  freezes finished lanes with the same masks, so it returns what the
+  flag-reading form returns (egobox_tpu's ``lax.while_loop``s stop early;
+  frozen lanes do not change either way).
 
 ``ls_batch > 1`` is the speculative line search of egobox_tpu: all
 ``ls_batch`` backtracking steps are evaluated at once (in the lockstep form
@@ -128,6 +134,7 @@ def minimize_lbfgsb(
     grad_from_res: Callable = None,
     ls_batch: int = 0,
     final_grad: bool = True,
+    graph_safe: bool = False,
 ) -> LbfgsbResult:
     """Minimize ``fun`` (scalar, differentiable by autograd) over the box
     [lower, upper], from x0 (d,).
@@ -148,7 +155,13 @@ def minimize_lbfgsb(
     lanes are solved at once; ``x``, ``fun``, ``n_iters`` and ``converged``
     of the result then carry the lane axis. The residual interface is
     one-lane only.
+
+    ``graph_safe``: the lockstep form without host reads (see the module
+    docstring); it takes lockstep lanes only.
     """
+    if graph_safe and x0.ndim != 2:
+        raise ValueError("minimize_lbfgsb: graph_safe takes lockstep lanes, "
+                         "x0 of shape (k, d)")
     if x0.ndim == 2:
         if fun_and_res is not None or grad_from_res is not None:
             raise ValueError(
@@ -156,7 +169,8 @@ def minimize_lbfgsb(
                 "lockstep lanes (x0 of shape (k, d)) need a batched fun"
             )
         return _minimize_lanes(fun, x0, lower, upper, max_iters, history,
-                               max_ls, gtol, xtol, ls_batch, final_grad)
+                               max_ls, gtol, xtol, ls_batch, final_grad,
+                               graph_safe)
     c1 = 1e-4
 
     def clip(x):
@@ -278,7 +292,8 @@ def _two_loop_lanes(g, s_hist, y_hist, rho, valid, head):
 
 
 def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
-                    xtol, ls_batch, final_grad) -> LbfgsbResult:
+                    xtol, ls_batch, final_grad,
+                    graph_safe=False) -> LbfgsbResult:
     """The lockstep form of ``minimize_lbfgsb``: the state of egobox_tpu's
     vmapped ``lax.while_loop`` (lbfgsb.py:261-304) as tensors with a leading
     lane axis. Every lane computes every iteration; the updates of a lane
@@ -287,7 +302,9 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
 
     Host reads: one pair of flags per iteration (is any lane active, does
     any lane need a deeper line-search round), one more per deeper round,
-    and with the sequential search (``ls_batch <= 1``) one per trial."""
+    and with the sequential search (``ls_batch <= 1``) one per trial; none
+    with ``graph_safe``, which runs every trip instead of stopping when the
+    flags say that no lane needs it."""
     c1 = 1e-4
     k, d = x0.shape
     dev = x0.device
@@ -337,10 +354,12 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
             scale = torch.ones((k,), dtype=x.dtype, device=dev)
             xs, fs = trial_batch(scale)
             deeper = active & (torch.min(fs, dim=1).values >= f)
-            any_active, any_deeper = torch.stack(
-                [active.any(), deeper.any()]).tolist()
-            if not any_active:
-                break
+            any_deeper = True
+            if not graph_safe:
+                any_active, any_deeper = torch.stack(
+                    [active.any(), deeper.any()]).tolist()
+                if not any_active:
+                    break
             r = 1
             while any_deeper and r < n_rounds:
                 # only the lanes with no improving trial move on
@@ -350,7 +369,7 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
                 fs = torch.where(deeper[:, None], fs_n, fs)
                 r += 1
                 deeper = deeper & (torch.min(fs, dim=1).values >= f)
-                any_deeper = bool(deeper.any())
+                any_deeper = graph_safe or bool(deeper.any())
             dxs = xs - x[:, None, :]
             armijo = fs <= f[:, None] + c1 * torch.sum(
                 dxs * g[:, None, :], dim=2)
@@ -359,7 +378,7 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
                               torch.argmin(fs, dim=1))
             x_new, f_new = xs[lanes, idx], fs[lanes, idx]
         else:
-            if not bool(active.any()):
+            if not graph_safe and not bool(active.any()):
                 break
             # per-lane Armijo backtracking: a lane stops at its first
             # passing (or stuck) trial and keeps it; the last trial is
@@ -377,7 +396,7 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
                 stuck = torch.max(torch.abs(dx), dim=1).values <= xtol
                 searching = searching & ~(ok | stuck)
                 alpha *= 0.5
-                if not bool(searching.any()):
+                if not graph_safe and not bool(searching.any()):
                     break
 
         improved = (f_new < f) & active
@@ -394,9 +413,10 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
         sy = torch.sum(s * y, dim=1)
         good = improved & (sy > 1e-10 * torch.linalg.norm(s, dim=1)
                            * torch.linalg.norm(y, dim=1))
-        slot = torch.zeros_like(valid)
-        slot[lanes, head] = True
-        slot = slot & good[:, None]
+        # each lane's head slot, where its pair is good (a one-hot built on
+        # the device: an index assignment would copy a host scalar)
+        slot = ((torch.arange(history, device=dev)[None, :] == head[:, None])
+                & good[:, None])
         s_hist = torch.where(slot[:, :, None], s[:, None, :], s_hist)
         y_hist = torch.where(slot[:, :, None], y[:, None, :], y_hist)
         rho_new = 1.0 / torch.where(sy != 0, sy, torch.ones_like(sy))

@@ -110,6 +110,20 @@ def test_likelihood_dispatch_through_panels(monkeypatch):
     np.testing.assert_allclose(j_native, t_native, rtol=1e-12)
 
 
+def test_stack_above_the_native_limit_takes_the_panel_driver(monkeypatch):
+    """A stack of matrices above the native limit goes through the K2
+    driver matrix by matrix (the lanes of a one-output fit are a stack of
+    one): each factor equals ``panel_cholesky``'s, bit for bit."""
+    monkeypatch.setattr(tlk, "_CHOL_NATIVE_MAX", 64)
+    monkeypatch.setenv("EGOBOX_CHOL", "pallas:32:highest")
+    r = torch.stack([torch.from_numpy(_spd(100, s)) for s in (1, 2)])
+    for stack in (r[:1], r, r.reshape(1, 2, 100, 100)):
+        got = tlk._cholesky(stack)
+        want = torch.stack([chk.panel_cholesky(m, block=32)
+                            for m in stack.reshape(-1, 100, 100)])
+        assert torch.equal(got, want.reshape(stack.shape))
+
+
 @pytest.mark.parametrize("spec", ["blk:inverse:2048:high", "pallas:256",
                                   "pallas:256:bf16", "cusolver"])
 def test_cholesky_spec_rejected(spec, monkeypatch):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from egobox_torch import gp as tgp
+from egobox_torch.types import ConstraintStrategy
 from egobox_torch.gp import kernels as tk
 from egobox_torch.gp import likelihood as tlk
 from egobox_torch.ops import chol_kernel as chk
@@ -437,3 +438,204 @@ def test_egor_in_float32_launches_k1(dev):
     assert ck.launches == before
     assert e64.solver.last_models.r_chol.dtype == torch.float64
     assert x32.shape == x64.shape == (1, 10)
+
+
+# ---------------------------------------------------------------------------
+# the fused iteration as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _xsinx_np(x):
+    x = np.atleast_2d(x)
+    return ((x - 3.5) * np.sin((x - 3.5) / np.pi)).reshape(-1, 1)
+
+
+def _g24_np(point):
+    p = np.atleast_2d(point)
+    x1, x2 = p[:, 0], p[:, 1]
+    c1 = -2.0 * x1**4 + 8.0 * x1**3 - 8.0 * x1**2 + x2 - 2.0
+    c2 = (-4.0 * x1**4 + 32.0 * x1**3 - 88.0 * x1**2 + 96.0 * x1 + x2
+          - 36.0)
+    return np.array([-x1 - x2, c1, c2]).T
+
+
+FUSED_CASES = {
+    "xsinx": dict(xl=[[0.0, 25.0]], fun=_xsinx_np, kw={}),
+    "g24": dict(xl=[[0.0, 3.0], [0.0, 4.0]], fun=_g24_np,
+                kw=dict(n_cstr=2, cstr_tol=np.array([1e-3, 1e-3]),
+                        cstr_strategy=ConstraintStrategy.UTB)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_captured_fused_step_equals_its_eager_run(dev, case):
+    """One fused iteration run three times on the same inputs through the
+    solver's graph cache: eagerly (the first sight of its signature), by
+    capture and replay, and by a second replay; float64, rtol 1e-9. The
+    eager run on the card also matches the CPU's (x within 1e-4 of the box
+    width: a multistart argmin on another device's rounding; on an H100
+    xsinx's moves by 1.5e-5 of its width)."""
+    import egobox_torch as egx
+
+    c = FUSED_CASES[case]
+    xl = np.asarray(c["xl"])
+    x = np.random.default_rng(5).uniform(xl[:, 0], xl[:, 1], (12, len(xl)))
+    y = c["fun"](x)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        egor = egx.Egor(c["xl"], n_start=6, seed=3, device=device,
+                        **c["kw"])
+        solver = egor.solver
+        runs = []
+        for _ in range(3 if device == "cuda" else 1):
+            # the same draws every time: a fresh state and draw stream
+            st = solver.init_state(None, doe=x, y_doe=y)
+            solver.draws = type(solver.draws)(3)
+            xk, _, f = solver.select_next_points(st)
+            runs.append((xk[0], f, solver.graphs.stats.last))
+        outs[device] = runs
+    cuda = outs["cuda"]
+    assert [r[2] for r in cuda] == ["eager", "capture", "replay"]
+    for xk, f, _ in cuda[1:]:
+        np.testing.assert_allclose(xk, cuda[0][0], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(f, cuda[0][1], rtol=1e-9)
+    width = xl[:, 1] - xl[:, 0]
+    assert np.all(np.abs(cuda[0][0] - outs["cpu"][0][0]) <= 1e-4 * width)
+
+
+def test_fused_float32_fit_launches_k1_inside_the_graph(dev, monkeypatch):
+    """A 1 000-point d=10 Matern 5/2 design in float32, padded to a
+    bucket, captured although it is larger than the designs the fused path
+    captures by default (``GRAPH_MAX_ROWS``): the fused iteration's fit
+    launches K1 while the graph is captured, the replay equals the
+    capture's eager twin to float32 rounding, and every K1 shape it
+    launched holds against ``corr_cross_plain`` on the card."""
+    import egobox_torch as egx
+    from egobox_torch.ego import GpConfig, graphs
+
+    monkeypatch.setattr(graphs, "GRAPH_MAX_ROWS", 2048)
+
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-2.0, 2.0, (1000, 10))
+    y = np.sum(np.sin(x), axis=1, keepdims=True)
+    egor = egx.Egor([[-2.0, 2.0]] * 10, dtype=torch.float32, seed=2,
+                    n_start=4, gp_config=GpConfig(
+                        corr_spec=egx.CorrelationSpec.MATERN52, n_start=2,
+                        max_eval=3))
+    solver = egor.solver
+    ck.launch_shapes.clear()
+    got = []
+    for _ in range(3):
+        st = solver.init_state(None, doe=x, y_doe=y)
+        solver.draws = type(solver.draws)(2)
+        got.append(solver.select_next_points(st)[0][0])
+    stats = solver.graphs.stats
+    assert stats.captures == 1 and stats.replays == 2
+    assert stats.kernel_replays.get("corr_tile", 0) > 0
+    np.testing.assert_allclose(got[2], got[1], rtol=0, atol=0)
+    assert np.all(np.abs(got[1] - got[0]) <= 1e-3 * 4.0)
+    assert ck.launch_shapes
+    for (n1, n2) in ck.launch_shapes:
+        x1, x2, th = _k1_inputs(dev, n1, n2, 10, n1 + n2, theta=(0.1, 0.6))
+        if n1 == n2:
+            x2 = x1
+        torch.testing.assert_close(ck.corr_cross_tile("matern52", x1, x2, th),
+                                   ck.corr_cross_plain("matern52", x1, x2,
+                                                       th),
+                                   rtol=0, atol=K1_ATOL)
+
+
+def test_traced_run_on_the_card(dev):
+    """The traced xsinx run on the card: each step after the first of its
+    signature is a replay, and the chunk rows are fetched once per chunk."""
+    import egobox_torch as egx
+
+    def xsinx_t(x):
+        return (x - 3.5) * torch.sin((x - 3.5) / np.pi)
+
+    egor = egx.Egor([[0.0, 25.0]], seed=2, traced_run=True)
+    res = egor.minimize(xsinx_t, max_iters=12)
+    assert res.y_opt[0] < -15.0
+    stats = egor.solver.graphs.stats
+    assert stats.captures >= 1 and stats.replays >= 8
+    assert sum(c["iterations"] for c in egor.iteration_times) == 12
+
+
+def test_egor_batch_on_the_card_equals_the_cpu(dev):
+    """EgorBatch's batched fused step (3 problems, each on its own box) on
+    the card, three times (eager, capture, replay) on the same draws, and on
+    the CPU: the replays equal the eager run at rtol 1e-9, the card the CPU
+    within 1e-4 of each box's width. The boxes are ones where the proposal
+    is a function of the data (a 1e-11 relative change of y moves it by less
+    than 1e-9 on the CPU); on [0, 25] with these 7 points the criterion is
+    nearly flat and such a change moves the proposal by 0.3, so no two
+    devices' roundings can be held to one answer there."""
+    import egobox_torch as egx
+    from egobox_torch.ego import GpConfig
+
+    xl = np.array([[[2.0, 22.0]], [[0.0, 20.0]], [[5.0, 25.0]]])
+    rng = np.random.default_rng(6)
+    x = np.stack([rng.uniform(b[0, 0], b[0, 1], (7, 1)) for b in xl])
+    y = np.stack([_xsinx_np(x[b]) for b in range(3)])
+    out = {}
+    for device in ("cuda", "cpu"):
+        runs = []
+        for _ in range(3 if device == "cuda" else 1):
+            eb = egx.EgorBatch([_xsinx_np] * 3, xl, seed=4, n_start=4,
+                               device=device,
+                               gp_config=GpConfig(n_start=2, max_eval=10))
+            if runs:
+                eb.graphs = cache
+            runs.append(eb.suggest(x, y))
+            cache = eb.graphs
+        out[device] = (runs, cache.stats)
+    runs, stats = out["cuda"]
+    assert (stats.eager, stats.captures, stats.replays) == (1, 1, 2)
+    for r in runs[1:]:
+        np.testing.assert_allclose(r, runs[0], rtol=1e-9, atol=1e-12)
+    width = xl[:, 0, 1] - xl[:, 0, 0]
+    assert np.all(np.abs(runs[0][:, 0] - out["cpu"][0][0][:, 0])
+                  <= 1e-4 * width)
+
+
+def test_graph_cache_drops_the_graphs_of_a_size_left(dev):
+    """The cache's first call is its eager warm-up (the early-exit form);
+    later calls capture a new signature at first sight and replay a known
+    one; a call of another size drops every graph of the old size. Each
+    result is the function's, and the pool's bytes are measured."""
+    from egobox_torch.ego.graphs import GraphCache
+
+    def fn(graph_safe, x):
+        return x * 2.0 + 1.0
+
+    cache = GraphCache()
+    calls = [("a", 8, 1.0), ("a", 8, 2.0), ("b", 8, 3.0), ("a", 8, 4.0),
+             ("c", 16, 5.0), ("c", 16, 6.0)]
+    seen = []
+    for key, size, v in calls:
+        x = torch.full((size, 1), v, device=dev, dtype=torch.float64)
+        out = cache.run(key, fn, {"x": x}, x.shape)
+        torch.testing.assert_close(out, x * 2.0 + 1.0, rtol=0, atol=0)
+        seen.append((cache.stats.last, cache.live))
+    assert seen == [("eager", 0), ("capture", 1), ("capture", 2),
+                    ("replay", 2), ("capture", 1), ("replay", 1)]
+    assert cache.stats.evicted == 2 and cache.stats.captures == 3
+    assert cache.stats.pool_peak_bytes is not None
+    assert cache.stats.pool_peak_bytes > 0
+
+
+def test_a_capture_that_cannot_succeed_raises(dev):
+    """An objective that reads a device value on the host (``.item()``)
+    cannot be captured: the traced run raises when it captures, and does
+    not go on eagerly. (Last in the file: a capture that failed may leave
+    the context's capture state behind.)"""
+    import egobox_torch as egx
+
+    def reads_the_host(x):
+        shift = float((x * 0).sum().item())
+        return (x - 3.5 + shift) * torch.sin((x - 3.5) / np.pi)
+
+    egor = egx.Egor([[0.0, 25.0]], seed=42, traced_run=True)
+    with pytest.raises(RuntimeError):
+        egor.minimize(reads_the_host, max_iters=6)
+    assert egor.solver.graphs.stats.captures == 0

@@ -89,3 +89,49 @@ def test_lhs_object_scales_to_its_limits():
                  & (s <= torch.tensor(xl[:, 1]))).all())
     with pytest.raises(ValueError):
         tlhs.Lhs([0.0, 1.0], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# full factorial and uniform random designs
+# ---------------------------------------------------------------------------
+
+from egobox_tpu import doe as jdoe  # noqa: E402
+from egobox_torch import doe as tdoe  # noqa: E402
+
+
+@pytest.mark.parametrize("ns,nx", [(9, 2), (7, 2), (8, 3), (5, 1), (10, 3),
+                                   (1, 4), (30, 2)])
+def test_full_factorial_equals_jax(ns, nx):
+    """The same grid as egobox_tpu's, to the last bit, truncation to ns
+    rows included (tests/test_doe.py:60-70)."""
+    got = tdoe.full_factorial_normalized(ns, nx, device="cpu")
+    want = np.asarray(jdoe.full_factorial_normalized(ns, nx, jnp.float64))
+    assert got.shape == (ns, nx) and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_full_factorial_and_random_objects():
+    """The object APIs scale into their xlimits (tests/test_doe.py:61-80);
+    FullFactorial equals egobox_tpu's, Random stays in the box and repeats
+    with its seed."""
+    xl = np.array([[0.0, 1.0], [-2.0, 3.0], [10.0, 11.0]])
+    ff = tdoe.FullFactorial(xl, device="cpu").sample(9)
+    np.testing.assert_allclose(
+        ff.numpy(), np.asarray(jdoe.FullFactorial(jnp.asarray(xl)).sample(9)),
+        rtol=0, atol=1e-15)
+    np.testing.assert_array_equal(np.unique(ff[:, 2].numpy()), [10.0, 11.0])
+    r = tdoe.Random(xl, seed=1, device="cpu")
+    x = r.sample(50)
+    assert x.shape == (50, 3)
+    assert bool(((x >= torch.from_numpy(xl[:, 0]))
+                 & (x <= torch.from_numpy(xl[:, 1]))).all())
+    again = tdoe.Random(xl, seed=1, device="cpu").sample(50)
+    assert torch.equal(x, again)
+    assert not torch.equal(x, r.sample(50))  # the stream moves on
+    u = tdoe.random_normalized(torch.Generator().manual_seed(2), 40, 2,
+                               device="cpu")
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    with pytest.raises(ValueError, match="xlimits"):
+        tdoe.Random(np.zeros(3), device="cpu")
+    with pytest.raises(ValueError, match="xlimits"):
+        tdoe.FullFactorial(np.zeros((2, 3)), device="cpu")

@@ -150,8 +150,8 @@ def test_xsinx_golden():
         assert abs(res.y_opt[0] - (-15.125)) < 1e-3, seed
         assert res.x_doe.shape == (25, 1)
         assert len(egor.iteration_times) == 20
-        assert set(egor.iteration_times[0]) == {"fit", "cloud", "infill",
-                                                "total"}
+        # the default path is the fused iteration: one program per step
+        assert set(egor.iteration_times[0]) == {"select", "graph", "total"}
         x_met.append(abs(res.x_opt[0] - 18.935) < 1e-3)
     assert sum(x_met) >= XSINX_X_MIN, x_met
 
@@ -378,7 +378,10 @@ def test_full_config_dump(tmp_path):
     assert payload["trego"]["activated"] is False
     assert len(payload["xspecs"]) == 2
     assert payload["xspecs"][0]["xlimits"] == [0.0, 3.0]
-    assert payload["shape_bucket"] == 8
+    # the pad quantum of the fused path: EGOBOX_SHAPE_BUCKET, as in
+    # egobox_tpu (the test configuration sets it)
+    assert payload["shape_bucket"] == egor.config.shape_bucket == int(
+        os.environ.get("EGOBOX_SHAPE_BUCKET", "8"))
 
 
 def test_no_more_point_to_add_stops_the_run():

@@ -1,22 +1,26 @@
 """The host-side modules of egobox_torch's Egor loop against egobox_tpu's on
-random inputs (exact), and every path this slice leaves out: each raises
+random inputs (exact), the traceable picker of the fused programs with
+JAX's draws (atol 1e-12), and every path the port leaves out: each raises
 ``NotImplementedError`` naming its ROADMAP item. ``device="cpu"``.
 """
 
 import json
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import egobox_tpu as jegx
+from egobox_tpu.doe.lhs import maximin_lhs as jax_maximin_lhs
 from egobox_tpu.ego import config as jcfg
 from egobox_tpu.ego import find_result as jfind
 from egobox_tpu.ego import mixint as jmix
 from egobox_tpu.ego import start_points as jstart
 from egobox_tpu.ego import state as jstate
 import egobox_torch as egx
-from egobox_torch.ego import Egor, EgorConfig, EgorState
+from egobox_torch.ego import Egor, EgorBatch, EgorConfig, EgorState
 from egobox_torch.ego import find_result as tfind
 from egobox_torch.ego import mixint as tmix
 from egobox_torch.ego import start_points as tstart
@@ -35,8 +39,8 @@ def xsinx(x):
 
 
 @pytest.mark.parametrize("build,item", [
-    (lambda: Egor([[0.0, 25.0]], traced_run=True, device="cpu"),
-     "fused, traced and batched EGO loops"),
+    (lambda: EgorBatch([xsinx, xsinx], np.array([[0.0, 25.0]]),
+                       device="cpu", mesh=object()), "parallel"),
     (lambda: Egor([[0.0, 25.0]], n_clusters=2, seed=1, device="cpu")
      .minimize(xsinx, max_iters=1), "MoE surrogates in Egor"),
     (lambda: Egor([[0.0, 25.0]] * 4, coego_n_coop=2, seed=1, device="cpu")
@@ -167,7 +171,9 @@ def test_state_round_trip_matches_jax():
 
 
 def test_config_defaults_match_jax():
-    tc, jc = EgorConfig(), jcfg.EgorConfig(shape_bucket=8)
+    # both read the pad quantum from EGOBOX_SHAPE_BUCKET (the test
+    # configuration sets it)
+    tc, jc = EgorConfig(), jcfg.EgorConfig()
     for f in ("n_start", "n_doe", "n_cstr", "q_points", "q_optmod",
               "warm_refit_n_start", "coego_n_coop", "shape_bucket",
               "target", "cstr_infill"):
@@ -183,3 +189,49 @@ def test_config_defaults_match_jax():
         EgorConfig(q_points=0).check()
     with pytest.raises(ValueError, match="entries"):
         EgorConfig(n_cstr=2, cstr_tol=np.array([1.0])).resolved_cstr_tol()
+
+
+# ---------------------------------------------------------------------------
+# the traceable picker
+# ---------------------------------------------------------------------------
+
+
+def _jax_picker_draws(key, nb, n_start, nx):
+    """The two draws egobox_tpu's picker makes from its key."""
+    ksub, kfill = jax.random.split(key)
+    scores = jax.random.uniform(ksub, (nb,), dtype=jnp.float64)
+    fill = jax_maximin_lhs(kfill, n_start, nx, False, 5, jnp.float64)
+    return np.asarray(scores), np.asarray(fill)
+
+
+# (n_active, n_pad, nx, n_start, n_sub_max, lo, hi, key): two cases of
+# tests/test_start_points_traced.py (the forced two-point subset among
+# them), a box with a zero-width side, and a design small enough that the
+# fill completes every row
+PICKER_CASES = [
+    (37, 11, 3, 6, 8, 0.0, 1.0, 1),
+    (12, 4, 2, 3, 2, 0.0, 1.0, 5),
+    (25, 7, 3, 5, 4, [0.0, 0.5, 0.2], [2.0, 0.5, 1.0], 9),
+    (3, 5, 2, 6, 3, 0.0, 1.0, 4),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PICKER_CASES)))
+def test_traced_picker_matches_jax(case):
+    n_act, n_pad, nx, n_start, n_sub, lo, hi, seed = PICKER_CASES[case]
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (n_act, nx))
+    xp = np.concatenate([x, np.zeros((n_pad, nx))])
+    mask = np.arange(n_act + n_pad) < n_act
+    lo = np.broadcast_to(np.asarray(lo, float), (nx,)).copy()
+    hi = np.broadcast_to(np.asarray(hi, float), (nx,)).copy()
+    key = jax.random.key(seed)
+    want = np.asarray(jstart.middle_picker_starts_traced(
+        key, jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(lo),
+        jnp.asarray(hi), n_start, n_sub))
+    scores, fill = _jax_picker_draws(key, n_act + n_pad, n_start, nx)
+    got = tstart.middle_picker_starts_traced(
+        torch.from_numpy(xp), torch.from_numpy(mask), torch.from_numpy(lo),
+        torch.from_numpy(hi), n_start, n_sub, torch.from_numpy(scores.copy()),
+        torch.from_numpy(fill.copy())).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)

@@ -161,3 +161,50 @@ def test_lanes_refuse_the_residual_interface():
         minimize_lbfgsb(None, x0, x0[0] - 1, x0[0] + 1,
                         fun_and_res=lambda x: (x.sum(), ()),
                         grad_from_res=lambda x, r: x)
+
+
+# ---------------------------------------------------------------------------
+# L-BFGS without host reads
+# ---------------------------------------------------------------------------
+
+
+def _lanes_problem():
+    """Five lanes: quadratic bowls of different conditioning (they finish
+    at different iterations), a lane already at its optimum, and a lane
+    whose first step overshoots by 1e6 (every trial of the first rounds
+    is worse, so it needs every deeper round)."""
+    scale = torch.tensor([1.0, 30.0, 1e3, 1.0, 1e6], dtype=torch.float64)
+    center = torch.tensor([[0.3, -0.2], [0.5, 0.5], [-0.7, 0.1],
+                           [0.0, 0.0], [0.2, 0.2]], dtype=torch.float64)
+    x0 = torch.tensor([[1.5, 1.0], [-1.0, 2.0], [0.9, -1.5], [0.0, 0.0],
+                       [1.2, 1.2]], dtype=torch.float64)
+
+    def fun(x):
+        lanes_first = x.ndim == 3
+        s = scale[:, None] if lanes_first else scale
+        c = center[:, None, :] if lanes_first else center
+        d = x - c
+        return s * torch.sum(d * d, dim=-1) + 0.1 * torch.sum(d**4, dim=-1)
+
+    return fun, x0
+
+
+@pytest.mark.parametrize("ls_batch", [1, 8])
+def test_graph_safe_lbfgs_equals_flag_reading(ls_batch):
+    fun, x0 = _lanes_problem()
+    lo = torch.full((2,), -2.0, dtype=torch.float64)
+    up = torch.full((2,), 2.0, dtype=torch.float64)
+    kw = dict(max_iters=40, ls_batch=ls_batch)
+    a = minimize_lbfgsb(fun, x0, lo, up, **kw)
+    b = minimize_lbfgsb(fun, x0, lo, up, graph_safe=True, **kw)
+    np.testing.assert_allclose(b.x.numpy(), a.x.numpy(), rtol=1e-12,
+                               atol=0)
+    np.testing.assert_allclose(b.fun.numpy(), a.fun.numpy(), rtol=1e-12,
+                               atol=0)
+    assert torch.equal(a.n_iters, b.n_iters)
+    assert torch.equal(a.converged, b.converged)
+    # lanes finish at different iterations, some before the budget
+    assert len(set(a.n_iters.tolist())) > 2 and int(a.n_iters.min()) < 40
+    with pytest.raises(ValueError, match="lockstep"):
+        minimize_lbfgsb(lambda x: fun(x[None])[0], x0[0], lo, up,
+                             graph_safe=True)

@@ -159,9 +159,15 @@ def test_theta_stack_keeps_a_failed_row_to_itself():
                              None, 1e-10)
         np.testing.assert_allclose(float(v[i]), v_1, rtol=1e-11)
         np.testing.assert_allclose(g[i].numpy(), g_1, rtol=1e-9)
-    with pytest.raises(ValueError, match="unmasked"):
-        tlk._build_r("matern52", _t(xn), _t(thetas), None, 1e-10,
-                     torch.ones(30, dtype=torch.bool))
+    # a stack now takes a mask too: the failed row stays in its own row
+    mask = torch.ones(30, dtype=torch.bool)
+    mask[25:] = False
+    r = tlk._build_r("matern52", _t(xn), _t(thetas), None, 1e-10, mask)
+    for i in (0, 2):
+        r1 = tlk._build_r("matern52", _t(xn), _t(thetas[i]), None, 1e-10,
+                          mask)
+        np.testing.assert_allclose(r[i].numpy(), r1.numpy(), rtol=1e-14)
+    assert bool(torch.isnan(r[1, :25, :25]).all())
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -407,3 +413,76 @@ def test_tr_nan_region():
                            max_iters=120, delta0=2.0)
     assert np.isfinite(float(res.fun))
     np.testing.assert_allclose(res.x.numpy(), np.ones(2), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the masked (output x lane) likelihood stack
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("corr", KERNELS)
+def test_masked_output_lane_stack_matches_jax(corr):
+    """2 outputs x 3 thetas on a design of 14 rows padded to 20: one stack
+    with y per lane against the port one theta at a time and against
+    ``jax.vmap`` of egobox_tpu's likelihood and ``jax.grad``."""
+    rng = np.random.default_rng(3)
+    n, n_pad, d = 14, 6, 3
+    x = np.concatenate([rng.uniform(-2, 2, (n, d)), np.zeros((n_pad, d))])
+    mask = np.arange(n + n_pad) < n
+    xn = (x - x[:n].mean(0)) / x[:n].std(0, ddof=1) * mask[:, None]
+    ys = np.stack([np.sin(2 * x[:, 0]) + x[:, 1], np.cos(x[:, 2]) * x[:, 0]],
+                  axis=1) * mask[:, None]
+    y_std = ys[:n].std(0, ddof=1)
+    yn = (ys - ys[:n].mean(0)) / y_std * mask[:, None]
+    thetas = rng.uniform(0.3, 1.5, (2, 3, d))
+    lanes = thetas.reshape(6, d)
+    y_lanes = np.repeat(yn.T[:, None, :, None], 3, axis=1).reshape(6, -1, 1)
+    s_lanes = np.repeat(y_std, 3)
+    nugget = 1e-10
+
+    f = tlk.make_neg_reduced_likelihood(
+        corr, "constant", _t(xn), _t(y_lanes), _t(s_lanes), None, nugget,
+        _t(mask))
+    th = _t(lanes).clone().requires_grad_(True)
+    v = f(th)
+    (g,) = torch.autograd.grad(v.sum(), th)
+    rlf, inner = tlk.reduced_likelihood(
+        corr, "constant", _t(xn), _t(y_lanes), _t(s_lanes), _t(lanes), None,
+        nugget, _t(mask))
+    # lanes x trials: the trials of a lane are evaluated on its data
+    with torch.no_grad():
+        v2 = f(torch.stack([_t(lanes), 1.1 * _t(lanes)], dim=1))
+    np.testing.assert_allclose(v2[:, 0].numpy(), v.detach().numpy(),
+                               rtol=1e-12)
+
+    def jax_one(theta, y, s):
+        return jlk.reduced_likelihood(
+            corr, "constant", jnp.asarray(xn), y, s, theta, None, nugget,
+            jnp.asarray(mask))
+
+    rlf_j, inner_j = jax.vmap(jax_one)(
+        jnp.asarray(lanes), jnp.asarray(y_lanes), jnp.asarray(s_lanes))
+
+    def jax_neg(theta, y, s):
+        return jlk.make_neg_reduced_likelihood(
+            corr, "constant", jnp.asarray(xn), y, s, None, nugget,
+            jnp.asarray(mask))(theta)
+
+    g_j = jax.vmap(jax.grad(jax_neg))(
+        jnp.asarray(lanes), jnp.asarray(y_lanes), jnp.asarray(s_lanes))
+    np.testing.assert_allclose(rlf.numpy(), np.asarray(rlf_j), rtol=1e-9)
+    np.testing.assert_allclose(-v.detach().numpy(), np.asarray(rlf_j),
+                               rtol=1e-9)
+    for a, b in zip(inner, inner_j):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-9,
+                                   atol=1e-9 * np.max(np.abs(b)))
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_j), rtol=1e-9,
+                               atol=1e-9 * np.max(np.abs(np.asarray(g_j))))
+    for i in range(6):
+        rlf_1, inner_1 = tlk.reduced_likelihood(
+            corr, "constant", _t(xn), _t(y_lanes[i]), _t(s_lanes[i:i + 1]),
+            _t(lanes[i]), None, nugget, _t(mask))
+        np.testing.assert_allclose(float(rlf[i]), float(rlf_1), rtol=1e-11)
+        for a, b in zip(inner, inner_1):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), rtol=1e-9,
+                                       atol=1e-11 * float(b.abs().max()))
