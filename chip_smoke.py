@@ -59,7 +59,18 @@ Phases (any failure raises and the script exits non-zero):
    gradient of a stack of thetas as the lockstep lanes evaluate them, are
    held against a float64 recomputation at the fitted theta, and the
    float32 surrogate's prediction on 2000 holdout points against the
-   float64 model's.
+   float64 model's;
+11. moe-fit-n4000-d10-matern52: ``moe.train_moe`` of 2 clusters on 4 000
+   Griewank-plus-step points, d=10, numpy float32 with no device
+   (``moe_fit_phase``): seconds per step, K1's launches by shape, each held
+   against the plain version, the experts' float32 likelihoods against
+   float64, the holdout Q2 against a one-cluster fit;
+12. egor-moe2-piecewise: the clustered Egor (2 clusters, 15 iterations) on
+   the fused clustered path at seeds 42, 7, 11, 23 and on the host path at
+   42, each run against its gate (``egor_moe_phase``).
+
+``--phases kernels,slice,egor,moe`` runs a subset after the build (and
+then prints neither the kernels line nor the result line).
 
 Every Egor phase prints its seconds per EGO iteration (per phase on the
 unfused path, per kind of graph call on the fused one, per chunk on the
@@ -68,7 +79,7 @@ PyTorch's sync debug mode reports), the graphs captured, their capture
 seconds, the most memory their pool held, the graphs dropped, and the
 replays per iteration.
 
-Phases 6-10 go through ``egobox_torch.Egor`` / ``EgorBatch`` with no device
+Phases 6-12 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` with no device
 (the card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
@@ -109,6 +120,11 @@ XSINX_X_MIN = 2  # seeds of the set that must meet the gate on x
 # mean's (in standard deviations of y)
 D10_GRAD_TOL, D10_Q2_TOL, D10_MEAN_TOL = 1e-2, 1e-3, 1e-2
 G24_TOL = 1e-3
+# the mixture phase: 4 000 training and 1 000 holdout points, d=10; the
+# mixture's holdout Q2 may trail the one-cluster fit's by this much at most
+MOE_N, MOE_HOLD, MOE_Q2_SLACK = 4000, 1000, 0.01
+MOE_CORRS = ("squared_exponential", "matern52")
+MOE_EGOR_SEEDS = (42, 7, 11, 23)
 
 
 def device_phase():
@@ -620,16 +636,23 @@ def egor_stats(name, owner, wall, reads, iters):
     times = owner.iteration_times
     g = owner.solver.graphs.stats if hasattr(owner, "solver") else \
         owner.graphs.stats
+    host = [t for t in times if "fit" in t]
+    fused = [t for t in times if "graph" in t and "chunk" not in t]
+    parts = []
     if times and "chunk" in times[0]:
-        split = f"chunks {[round(t['chunk'], 4) for t in times]!r} s"
-    elif times and "fit" in times[0]:
-        split = (f"fit {_med([t['fit'] for t in times])!r} s, cloud "
-                 f"{_med([t['cloud'] for t in times])!r} s, infill "
-                 f"{_med([t['infill'] for t in times])!r} s")
-    else:
-        by = {how: _med([t['total'] for t in times if t['graph'] == how])
+        parts.append(f"chunks {[round(t['chunk'], 4) for t in times]!r} s")
+    if host:
+        parts.append(
+            f"{len(host)} host iterations: fit "
+            f"{_med([t['fit'] for t in host])!r} s, cloud "
+            f"{_med([t['cloud'] for t in host])!r} s, infill "
+            f"{_med([t['infill'] for t in host])!r} s")
+    by = {}
+    if fused:
+        by = {how: _med([t['total'] for t in fused if t['graph'] == how])
               for how in ("eager", "capture", "replay")}
-        split = f"by graph call {by!r} s"
+        parts.append(f"by graph call {by!r} s")
+    split = "; ".join(parts)
     mib = (None if g.pool_peak_bytes is None
            else g.pool_peak_bytes / 2**20)
     stats = dict(iterations=iters, wall_s=wall, iters_per_s=iters / wall,
@@ -637,7 +660,8 @@ def egor_stats(name, owner, wall, reads, iters):
                  graphs_captured=g.captures, capture_s=g.capture_s,
                  graph_pool_peak_mib=mib, graphs_dropped=g.evicted,
                  replays_per_iteration=g.replays / iters,
-                 eager_calls=g.eager)
+                 eager_calls=g.eager, host_iterations=len(host),
+                 s_per_iteration_by_graph_call=by)
     per = [t["chunk"] / t["iterations"] if "chunk" in t else t["total"]
            for t in times]
     print(f"{name}: {iters} iterations in {wall!r} s ({iters / wall!r} "
@@ -654,6 +678,8 @@ def egor_stats(name, owner, wall, reads, iters):
 def _egor_checks(torch, name, egor, res, iters, dtype):
     """The checks every single-problem Egor phase shares."""
     models = egor.solver.last_models
+    if isinstance(models, tuple):  # clustered: one mixture per output
+        models = models[0].experts[0]
     if models is not None and not (models.r_chol.device.type == DEV
                                    and models.r_chol.dtype == dtype):
         raise RuntimeError(f"{name}: the surrogates are "
@@ -994,7 +1020,178 @@ def egor_d10_float32_check(torch, egor, res, rng):
         raise RuntimeError("egor-d10: float32 strays from float64")
 
 
+def moe_data(seed=0):
+    """Griewank on +-600, d=10, plus a step of one standard deviation of
+    Griewank where x_0 > 0: two regimes for the clustering to find. The
+    training set as numpy float32 (the entry point takes it with no
+    device), the holdout in float64."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-600.0, 600.0, (MOE_N + MOE_HOLD, DIM))
+    g = griewank(x)
+    y = g + np.std(g) * (x[:, 0] > 0.0)
+    return (x[:MOE_N].astype(np.float32), y[:MOE_N].astype(np.float32),
+            x[MOE_N:], y[MOE_N:])
+
+
+def _q2(mean, y):
+    return 1.0 - float(np.sum((y - mean) ** 2) / np.sum((y - y.mean()) ** 2))
+
+
+def moe_expert_check(torch, mix, x, y):
+    """Each expert's float32 likelihood at its theta against a float64
+    recomputation on the card from the same rows (found by matching the
+    expert's de-normalized design to the training set). Returns the worst
+    relative error."""
+    from egobox_torch import gp
+
+    xs = torch.tensor(x, dtype=torch.float64, device=DEV)
+    ys = torch.tensor(y, dtype=torch.float64, device=DEV)
+    worst = 0.0
+    for c, e in enumerate(mix.experts):
+        nugget = 100.0 * torch.finfo(e.theta.dtype).eps  # the fit's own
+        rows = (e.x_norm * e.x_std + e.x_mean)[e.mask].double()
+        idx = torch.cdist(rows, xs).argmin(dim=1)
+        gap = float(torch.max(torch.abs(xs[idx] - rows)))
+        m64 = gp.fit_gp(xs[idx], ys[idx], corr=e.corr, trend=e.trend,
+                        theta_init=e.theta.double(), theta_fixed=True,
+                        nugget=nugget)
+        lk32, lk64 = float(e.likelihood), float(m64.likelihood)
+        rel = abs(lk32 - lk64) / abs(lk64)
+        worst = max(worst, rel)
+        print(f"moe-fit expert {c}: {int(e.mask.sum())} points, {e.trend} "
+              f"{e.corr}, theta {e.theta.tolist()}, likelihood float32 "
+              f"{lk32!r} vs float64 {lk64!r} (rel {rel!r}; rows matched "
+              f"within {gap!r})", flush=True)
+        if not (e.theta.dtype == torch.float32
+                and e.theta.device.type == DEV):
+            raise RuntimeError(f"moe-fit expert {c}: {e.theta.dtype} on "
+                               f"{e.theta.device}")
+        if not rel <= 1e-3:
+            raise RuntimeError(f"moe-fit expert {c}: float32 likelihood "
+                               f"{lk32} vs float64 {lk64} (rel {rel:.3g})")
+    return worst
+
+
+def moe_fit_phase(torch, egx, ck):
+    """moe-fit-n4000-d10-matern52: ``train_moe`` of 2 clusters, smooth,
+    squared exponential and Matern 5/2 in competition, on 4 000 points
+    (numpy float32, no device): the GMM, a 5-fold CV of both combos per
+    cluster, the expert fits, the heaviside search on a 1-in-5 holdout and
+    the retrain. K1 builds every Matern Gram of the fold and expert fits
+    (clusters of ~2 000 points, d=10); each shape it ran at is held
+    against the plain version. Then the experts' float32 likelihoods
+    against float64, and the holdout Q2 beside a one-cluster fit."""
+    x, y, xh, yh = moe_data()
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix = egx.moe.train_moe(x, y, n_clusters=2,
+                            recombination=egx.Recombination.SMOOTH,
+                            corr_names=MOE_CORRS, times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launches
+    by_shape = {f"{n1}x{n2}": c
+                for (n1, n2), c in sorted(ck.launch_shapes.items())}
+    print(f"moe-fit: train_moe {wall!r} s, by step {times!r}; heaviside "
+          f"factor {float(mix.gmx.heaviside_factor)!r}; K1 launches "
+          f"{launches} by shape {by_shape}", flush=True)
+    if launches <= 0:
+        raise RuntimeError("moe-fit: K1 was not launched")
+    worst = 0.0
+    for n1, n2 in ck.launch_shapes:
+        x1 = torch.randn((n1, DIM), device=DEV)
+        x2 = x1 if n1 == n2 else torch.randn((n2, DIM), device=DEV)
+        th = torch.rand((DIM,), device=DEV) * 0.5 + 0.1
+        worst = max(worst, _k1_check(
+            torch, f"moe-fit shape {n1}x{n2}",
+            ck.corr_cross_tile("matern52", x1, x2, th),
+            ck.corr_cross_plain("matern52", x1, x2, th)))
+    lkh_rel = moe_expert_check(torch, mix, x, y)
+    mean = mix.predict(xh).double().cpu().numpy()
+    if mean.shape != yh.shape or not np.all(np.isfinite(mean)):
+        raise RuntimeError(f"moe-fit: predict {mean.shape}")
+    var = mix.predict_var(xh)
+    if not bool(torch.all(torch.isfinite(var)) & torch.all(var >= 0)):
+        raise RuntimeError("moe-fit: predict_var not finite or negative")
+    q2_mix = _q2(mean, yh)
+    t1 = time.perf_counter()
+    one = egx.moe.train_moe(x, y, n_clusters=1, corr_names=MOE_CORRS)
+    q2_one = _q2(one.predict(xh).double().cpu().numpy(), yh)
+    t_one = time.perf_counter() - t1
+    print(f"moe-fit: K1 at its {len(ck.launch_shapes)} shapes against the "
+          f"plain version: max abs err {worst!r} (atol {K1_ATOL}); experts' "
+          f"float32 likelihood within {lkh_rel!r} of float64 (tolerance "
+          f"1e-3); holdout Q2 mixture {q2_mix!r}, one cluster {q2_one!r} "
+          f"({one.experts[0].corr}, fit {t_one!r} s)", flush=True)
+    if not q2_mix >= q2_one - MOE_Q2_SLACK:
+        raise RuntimeError(f"moe-fit: mixture Q2 {q2_mix} below the "
+                           f"one-cluster {q2_one} - {MOE_Q2_SLACK}")
+    return dict(wall_s=wall, step_s=times, k1_launches=launches,
+                k1_by_shape=by_shape, k1_max_abs_err=worst,
+                likelihood_rel=lkh_rel, q2_mixture=q2_mix,
+                q2_one_cluster=q2_one, one_cluster_s=t_one)
+
+
+def piecewise(x):
+    """Two smooth branches with a step at x = 10; the optimum -15 at x = 18
+    (bench.py:168-176)."""
+    x = np.atleast_2d(x)
+    left = (x - 3.5) * np.sin((x - 3.5) / np.pi)
+    right = 0.5 * (x - 18.0) ** 2 - 15.0
+    return np.where(x < 10.0, left, right).reshape(-1, 1)
+
+
+def _piecewise_gate(name, res):
+    if not (res.y_opt[0] < -14.0 and abs(res.x_opt[0] - 18.0) < 1.5):
+        raise RuntimeError(f"{name}: x {res.x_opt}, y {res.y_opt}")
+
+
+def egor_moe_phase(torch, egx):
+    """egor-moe2-piecewise: ``Egor([[0, 25]], n_doe=10, n_clusters=2,
+    seed=s).minimize(piecewise, 15)`` (bench.py:178-196) on the default
+    path, the fused clustered iteration (the clustering made on the host
+    at the first iteration, then one CUDA graph per signature), at seeds
+    42, 7, 11, 23, and on the host path (``EGOBOX_NO_FUSED_MOE=1``) at seed
+    42: y_opt < -14 and |x_opt - 18| < 1.5 at every run
+    (tests/test_fused_moe.py:266-276)."""
+    out = {"fused": []}
+
+    def make(seed):
+        return egx.Egor([[0.0, 25.0]], n_doe=10, n_clusters=2, seed=seed)
+
+    for seed in MOE_EGOR_SEEDS:
+        name = f"egor-moe2-piecewise fused seed {seed}"
+        res, st = egor_run(torch, egx, name, lambda s=seed: make(s),
+                           piecewise, 15)
+        _piecewise_gate(name, res)
+        out["fused"].append(st)
+    os.environ["EGOBOX_NO_FUSED_MOE"] = "1"
+    try:
+        name = f"egor-moe2-piecewise host seed {EGOR_SEED}"
+        res, out["host"] = egor_run(torch, egx, name,
+                                    lambda: make(EGOR_SEED), piecewise, 15)
+    finally:
+        os.environ.pop("EGOBOX_NO_FUSED_MOE")
+    _piecewise_gate(name, res)
+    return out
+
+
+PHASES = ("kernels", "slice", "egor", "moe")
+
+
 def main():
+    """All phases with no argument (the contract's run); ``--phases
+    moe,egor`` runs a subset after the build, and then prints no kernels
+    line and no result line."""
+    phases = PHASES
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        phases = tuple(sys.argv[2].split(","))
+    elif len(sys.argv) != 1:
+        raise SystemExit("usage: chip_smoke.py [--phases "
+                         f"{','.join(PHASES)}]")
     torch = device_phase()
     egx = import_port()
     from egobox_torch.gp import likelihood as lik
@@ -1014,18 +1211,28 @@ def main():
         elif "registers" in line or "spill" in line:
             print(f"  ptxas:   {line.strip()}")
 
-    k1 = k1_phase(torch, ck)
-    k2 = k2_phase(torch, chk, lik)
-    launches, k1_by_shape = slice_phase(torch, ck, chk)
+    if "kernels" in phases:
+        k1 = k1_phase(torch, ck)
+        k2 = k2_phase(torch, chk, lik)
+    if "slice" in phases:
+        launches, k1_by_shape = slice_phase(torch, ck, chk)
     os.environ["EGOBOX_CHOL"] = "native"
-    egor = dict(xsinx=egor_xsinx_phase(torch, egx),
-                g24=egor_g24_phase(torch, egx),
-                traced=egor_traced_phase(torch, egx),
-                batch=egor_batch_phase(torch, egx))
-    d10 = egor_d10_phase(torch, egx, ck)
-    egor["d10"] = d10
+    egor = {}
+    if "egor" in phases:
+        egor.update(xsinx=egor_xsinx_phase(torch, egx),
+                    g24=egor_g24_phase(torch, egx),
+                    traced=egor_traced_phase(torch, egx),
+                    batch=egor_batch_phase(torch, egx))
+        egor["d10"] = egor_d10_phase(torch, egx, ck)
+    if "moe" in phases:
+        moe_fit = moe_fit_phase(torch, egx, ck)
+        egor["moe2"] = egor_moe_phase(torch, egx)
+        print(json.dumps({"moe_fit": moe_fit}), flush=True)
     print(json.dumps({"egor": egor}), flush=True)
+    if phases != PHASES:
+        return
 
+    d10 = egor["d10"]
     kernels = [
         dict(name="corr_tile", route="cuda",
              source="egobox_torch/csrc/corr_tile.cu",
@@ -1036,7 +1243,9 @@ def main():
              launches_egor_d10_fused_per_iteration=d10[
                  "k1_ran_per_iteration"],
              launches_egor_d10_fused_replayed=d10["k1_replayed"],
-             launches_egor_d10_by_shape=d10["k1_by_shape"], **k1),
+             launches_egor_d10_by_shape=d10["k1_by_shape"],
+             launches_moe_fit=moe_fit["k1_launches"],
+             launches_moe_fit_by_shape=moe_fit["k1_by_shape"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",

@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of egobox_tpu: dense kriging and the Egor optimizer.
+"""PyTorch / CUDA port of egobox_tpu: dense kriging, the mixture of GP
+experts and the Egor optimizer.
 
 The port mirrors egobox_tpu's module layout and function names; egobox_tpu
 stays the reference it is tested against. This package imports neither jax
@@ -26,7 +27,7 @@ from .types import (
     XSpec,
     XType,
 )
-from . import doe, ego, gp, optim
+from . import doe, ego, gp, moe, optim
 from .ego import Egor, EgorBatch, GpConfig
 
 __all__ = [
@@ -54,5 +55,6 @@ __all__ = [
     "doe",
     "ego",
     "gp",
+    "moe",
     "optim",
 ]

@@ -1,8 +1,10 @@
 """Carry weights and state over from a model fitted or a run started
 elsewhere: the port's ``GpModel`` (one model, or the surrogate container
 with a leading output axis) from the arrays of e.g. an egobox_tpu
-``GpModel`` converted field by field with ``np.asarray``, and ``EgorState``
-from the hot-start checkpoint payload."""
+``GpModel`` converted field by field with ``np.asarray``, a
+``GaussianMixture`` and a ``GpMixture`` from those of egobox_tpu's, and
+``EgorState`` from the hot-start checkpoint payload (clusterings
+included)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import torch
 from .config import default_dtype, resolve_device
 from .ego.state import EgorState
 from .gp.gp import GpModel
+from .moe.gaussian_mixture import GaussianMixture
+from .moe.moe import GpMixture
+from .types import Recombination
 
 _STATIC = ("corr", "trend")
 
@@ -71,9 +76,39 @@ def gp_surrogates_from_numpy(fields: dict, corr: str, trend: str,
     return models
 
 
+def gmx_from_numpy(fields: dict, device=None, dtype=None) -> GaussianMixture:
+    """``GaussianMixture`` from the arrays of every field of egobox_tpu's
+    (``weights``, ``means``, ``covariances``, ``precisions_chol``,
+    ``heaviside_factor``), on ``device`` (default: the GPU) in ``dtype``
+    (default: the device's type)."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    names = [f.name for f in dataclasses.fields(GaussianMixture)]
+    missing = [k for k in names if k not in fields]
+    if missing:
+        raise ValueError(f"gmx_from_numpy: missing fields {missing}")
+    return GaussianMixture(**{
+        k: torch.from_numpy(np.array(fields[k], dtype=float)).to(
+            device=device, dtype=dtype) for k in names})
+
+
+def gp_mixture_from_numpy(experts: list, gmx_fields: dict,
+                          recombination=Recombination.SMOOTH, device=None,
+                          dtype=None) -> GpMixture:
+    """``GpMixture`` from egobox_tpu's: ``experts`` is one (fields, corr,
+    trend) triple per expert, as ``gp_model_from_numpy`` takes them, and
+    ``gmx_fields`` the mixture's arrays (``gmx_from_numpy``)."""
+    return GpMixture(
+        [gp_model_from_numpy(f, corr, trend, device, dtype)
+         for f, corr, trend in experts],
+        gmx_from_numpy(gmx_fields, device, dtype),
+        Recombination(recombination))
+
+
 def egor_state_from_dict(payload: dict) -> EgorState:
     """``EgorState`` from the payload of ``EgorState.to_dict()``, the
     hot-start checkpoint ``egor_checkpoint.json``; egobox_tpu writes the
-    same payload, so its checkpoints resume in the port. A payload that
-    carries clustered-surrogate state raises ``NotImplementedError``."""
+    same payload, so its checkpoints resume in the port, their clusterings
+    (host float64 tensors, moved to the solver's device when used) and
+    per-expert parameters included."""
     return EgorState.from_dict(payload)

@@ -4,9 +4,10 @@ Ported: ``Egor.minimize`` / ``Egor.suggest`` on the fused iteration (the
 default: one program per iteration, a CUDA graph on the GPU) and on the
 unfused host loop (``EGOBOX_NO_FUSED_STEP=1``), the traced whole run
 (``Egor(traced_run=True)``), ``EgorBatch``, the criteria, the lockstep
-multistart infill optimizer, TREGO and mixed-integer folding. CoEGO, the
-sigma-weight portfolio, clustered (MoE) surrogates and ``EgorBatch(mesh=)``
-are not.
+multistart infill optimizer, TREGO, mixed-integer folding and clustered
+(mixture-of-experts) surrogates, on the host path and as the fused
+clustered iteration. CoEGO, the sigma-weight portfolio and
+``EgorBatch(mesh=)`` are not.
 """
 
 from .batch import EgorBatch

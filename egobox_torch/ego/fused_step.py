@@ -19,10 +19,10 @@ on the CPU it runs eagerly.
   appends each virtual row to the padded design and refits, the seeds of
   every step after the first from the picker on the augmented design;
 - ``fused_select_point_batch``: B independent problems, one iteration each
-  (EgorBatch).
-
-egobox_tpu's ``fused_select_point_moe`` needs clustered surrogates, which
-are not ported (ROADMAP Queue 1 item 10).
+  (EgorBatch);
+- ``fused_select_point_moe``: the clustered iteration, the experts of
+  every output and cluster one stack of masked lanes, the mixture infill
+  over the tuple of ``MoeModel``.
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ from typing import Optional
 
 import torch
 
-from ..gp.fit import fit_gp_core, fit_gp_outputs
+from ..gp.fit import fit_gp_core, fit_gp_outputs, output_model
+from ..moe.gaussian_mixture import predict_cluster
+from ..moe.moe import MoeModel
 from .infill_optim import _eval_fcstrs, compute_scaling, optimize_infill
 from .start_points import middle_picker_starts_traced
 from .surrogates import (predict_valvar_cloud, stack_models,
@@ -80,6 +82,20 @@ def _select_core(
                         kpls_dim=kpls_dim, **fit_kw)
             for j in range(yp.shape[1])])
 
+    xk, fk = _scale_and_infill(
+        models, cloud, starts, lo, hi, fmin, cstr_tols, fcstr_tols,
+        feas_flag, crit=crit, cstr_strategy=cstr_strategy, n_cstr=n_cstr,
+        cstr_infill=cstr_infill, feasibility=feasibility,
+        optimizer=optimizer, fcstr_fns=fcstr_fns, graph_safe=graph_safe)
+    return xk, fk, models
+
+
+def _scale_and_infill(models, cloud, starts, lo, hi, fmin, cstr_tols,
+                      fcstr_tols, feas_flag, *, crit, cstr_strategy, n_cstr,
+                      cstr_infill, feasibility, optimizer, fcstr_fns,
+                      graph_safe):
+    """The scales over the cloud, then the multistart infill on either
+    surrogate container. Returns (xk, fk)."""
     # scaling over the cloud (ref: solver_computations.rs:132-193)
     scale_infill, scale_cstr, scale_wb2 = compute_scaling(
         models, cloud, fmin, cstr_tols,
@@ -100,7 +116,101 @@ def _select_core(
         cstr_infill=cstr_infill, feasibility=feasibility,
         optimizer=optimizer, fcstr_fns=fcstr_fns, graph_safe=graph_safe,
     )
-    return xk, fk, models
+    return xk, fk
+
+
+def _cluster_masks(xp, mask, gmxs, k: int):
+    """The rows each expert fits on, (m, k, nb): the active rows of the
+    padded design the output's mixture assigns to the cluster, or all the
+    active rows for a cluster of fewer than 3 (as ``train_moe_on_clusters``
+    falls back). One-hot masks and ``torch.where``: no host read."""
+    cl = torch.arange(k, device=xp.device)
+    assigns = torch.stack([predict_cluster(g, xp) for g in gmxs])  # (m, nb)
+    masks = mask[None, None, :] & (assigns[:, None, :] == cl[None, :, None])
+    cnt = torch.sum(masks, dim=2, keepdim=True)
+    return torch.where(cnt < 3, mask[None, None, :], masks)
+
+
+def fused_select_point_moe(
+    xp: torch.Tensor,  # (nb, nx) padded DoE
+    yp: torch.Tensor,  # (nb, m)
+    mask: torch.Tensor,  # (nb,)
+    gmxs: tuple,  # one GaussianMixture of k clusters per output
+    theta0s: torch.Tensor,  # (m, k, dim) per-expert warm-start inits
+    theta_lo: torch.Tensor,
+    theta_up: torch.Tensor,
+    fit_seeds: Optional[torch.Tensor],  # (gp_n_start, dim) LHS in [0, 1]
+    cloud: torch.Tensor,  # (n_cloud, nx) in the box
+    starts: torch.Tensor,  # (k_starts, nx)
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    fmin: torch.Tensor,
+    cstr_tols: torch.Tensor,
+    fcstr_tols: Optional[torch.Tensor] = None,
+    feas_flag: Optional[torch.Tensor] = None,
+    *,
+    k_clusters: int,
+    smooth: bool,
+    corr, trend, kpls_dim, gp_n_start, gp_max_iters, fixed, nugget, crit,
+    cstr_strategy, n_cstr, cstr_infill, feasibility, optimizer, ls_batch,
+    fcstr_fns, graph_safe,
+):
+    """The clustered EGO iteration in one program (egobox_tpu's
+    ``fused_select_point_moe``; ref: make_clustered_surrogate,
+    solver_impl.rs:121-296). Given the standing clustering (``gmxs``, made
+    on the host path), every step of the iteration runs on the device:
+
+    - the padded rows assigned to clusters, and a cluster of fewer than 3
+      active rows widened to every active row (``_cluster_masks``);
+    - the m x k experts fitted as one lockstep stack of masked lanes, every
+      lane with the same restart seeds (egobox_tpu: one key);
+    - the scaling cloud and the multistart infill over the tuple of
+      ``MoeModel``.
+
+    One regression and one correlation model, one k for every output. As
+    in egobox_tpu the GMM and the heaviside factor stay as they are between
+    reclusterings (the reference searches the factor again at every
+    smooth retrain).
+
+    Returns (packed [x (nx), -criterion], the tuple of MoeModel,
+    theta_last (m, k, dim))."""
+    nb, nx = xp.shape
+    m = yp.shape[1]
+    k = k_clusters
+    dim = theta0s.shape[2]
+    p = m * k
+    active = torch.ones((dim,), dtype=torch.bool, device=xp.device)
+    theta0s = torch.clamp(theta0s, theta_lo, theta_up)
+    masks = _cluster_masks(xp, mask, gmxs, k).reshape(p, nb)
+    ys = yp.T[:, None, :].expand(m, k, nb).reshape(p, nb, 1)
+    fit_kw = dict(corr=corr, trend=trend, n_start=gp_n_start,
+                  max_iters=gp_max_iters, fixed=fixed, nugget=nugget,
+                  ls_batch=ls_batch, graph_safe=graph_safe)
+    if kpls_dim is None:
+        experts = fit_gp_outputs(
+            xp.expand(p, nb, nx), ys, masks, theta0s.reshape(p, 1, dim),
+            theta_lo, theta_up, active,
+            None if fit_seeds is None else fit_seeds.expand(
+                (p,) + fit_seeds.shape), **fit_kw)
+    else:
+        # KPLS weights depend on each lane's rows: lane by lane
+        experts = stack_models([
+            fit_gp_core(xp, ys[i], masks[i], theta0s.reshape(p, dim)[i],
+                        theta_lo, theta_up, active, _GivenSeeds(fit_seeds),
+                        kpls_dim=kpls_dim, **fit_kw)
+            for i in range(p)])
+    models = tuple(
+        MoeModel(experts=tuple(output_model(experts, j * k + c)
+                               for c in range(k)),
+                 gmx=gmxs[j], smooth=smooth)
+        for j in range(m))
+    xk, fk = _scale_and_infill(
+        models, cloud, starts, lo, hi, fmin, cstr_tols, fcstr_tols,
+        feas_flag, crit=crit, cstr_strategy=cstr_strategy, n_cstr=n_cstr,
+        cstr_infill=cstr_infill, feasibility=feasibility,
+        optimizer=optimizer, fcstr_fns=fcstr_fns, graph_safe=graph_safe)
+    packed = torch.cat([xk, fk[None].to(xp.dtype)])
+    return packed, models, experts.theta.reshape(m, k, dim)
 
 
 def fused_select_point(

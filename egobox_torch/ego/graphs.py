@@ -9,6 +9,10 @@ thousands of small launches become one replay, and the host does no work
 per kernel.
 
 ``GraphCache.run(key, fn, inputs, size)`` runs ``fn(graph_safe, **inputs)``.
+Every tensor of ``inputs`` is an input of the graph, also inside nests of
+tuples and dataclasses (the clustered iteration's mixtures): a replay
+copies them all into the captured buffers, so that no value of a call is
+baked into a graph. What the key does not hold must be such a tensor.
 With ``graph_safe=True`` the function reads nothing on the host (its loops
 run fixed trip counts, optim/lbfgsb.py); with ``graph_safe=False`` the same
 operations stop early where the trip counts let them, with equal results.
@@ -173,8 +177,9 @@ class GraphCache:
             self.stats.last = "capture"
         else:
             for name, v in inputs.items():
-                if isinstance(v, torch.Tensor):
-                    entry.inputs[name].copy_(v)
+                for dst, src in zip(_tensors(entry.inputs[name]),
+                                    _tensors(v)):
+                    dst.copy_(src)
             self.stats.last = "replay"
         entry.graph.replay()
         self.stats.replays += 1
@@ -208,8 +213,7 @@ class GraphCache:
         return out
 
     def _capture(self, key, fn, inputs) -> _Graph:
-        static = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                  for k, v in inputs.items()}
+        static = {k: _tree_map(torch.clone, v) for k, v in inputs.items()}
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         counts = {k: mod.launches for k, mod in _KERNELS.items()}

@@ -17,10 +17,16 @@ Two paths, chosen as egobox_tpu chooses them (``_fast_path_ok``):
 - the unfused iteration (``EGOBOX_NO_FUSED_STEP=1``, and whatever the gate
   refuses): phase after phase on the unpadded design.
 
+Clustered surrogates (``n_clusters != 1``, or several regression or
+correlation models) take egobox_tpu's two paths as well: a host iteration
+whenever the clustering is (re)made, and the fused clustered iteration
+(ego/fused_step.py ``fused_select_point_moe``, a CUDA graph on the GPU)
+while it stands (``_fast_path_moe_ok``; ``EGOBOX_NO_FUSED_MOE=1`` selects
+the host path).
+
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-clustered (MoE) surrogates (and so egobox_tpu's fused clustered
-iteration), the sigma-weight portfolio, CoEGO, and the derivative-free
-polish for function constraints that are host callbacks.
+the sigma-weight portfolio, CoEGO, and the derivative-free polish for
+function constraints that are host callbacks.
 """
 
 from __future__ import annotations
@@ -37,11 +43,13 @@ from ..config import egor_dtype, resolve_device
 from ..doe.lhs import LhsKind, lhs_normalized
 from ..gp import fit as gp_fit
 from ..gp.kernels import theta_bounds_heuristic
+from ..moe.moe import expert_params, train_moe, train_moe_on_clusters
 from ..types import (
     ConstraintStrategy,
     InfillOptimizer,
     InfillStrategy,
     QInfillStrategy,
+    Recombination,
 )
 from .config import MAX_POINT_ADDITION_RETRY, EgorConfig
 from .find_result import (
@@ -49,7 +57,11 @@ from .find_result import (
     find_best_result_index_from,
     is_feasible,
 )
-from .fused_step import fused_select_point, fused_select_points_q
+from .fused_step import (
+    fused_select_point,
+    fused_select_point_moe,
+    fused_select_points_q,
+)
 from .graphs import GraphCache
 from .infill_optim import (
     _eval_fcstrs,
@@ -351,12 +363,60 @@ class EgorSolver:
         self.last_models = models
         return models
 
-    def _train_moe(self, state, xt, yt, optimize_theta=True):
-        raise _not_ported(
-            "clustered or multi-kernel surrogate training (n_clusters != 1, "
-            "several regression or correlation models)",
-            "MoE surrogates in Egor",
+    def have_to_recluster(self, state: EgorState) -> bool:
+        """Automatic clusterings are made again every 10 added points
+        (ref: solver_impl.rs:110-113); a fixed count clusters once."""
+        if self.config.gp_config.n_clusters > 0:
+            return False
+        return (
+            state.clusterings is None
+            or state.added // 10 > state.prev_added // 10
         )
+
+    def _train_moe(self, state: EgorState, xt: np.ndarray, yt: np.ndarray,
+                   optimize_theta: bool = True):
+        """One mixture per output (ref: make_clustered_surrogate,
+        solver_impl.rs:121-296): clustered anew when ``have_to_recluster``
+        (or when there is no clustering yet), else the experts retrained on
+        the standing clustering. With ``optimize_theta`` False (q_optmod
+        skip iterations) the experts are refit at the previous (trend,
+        corr, theta) (ref: solver_impl.rs:643-645). Returns the tuple of
+        ``MoeModel`` the infill takes."""
+        gpc = self.config.gp_config
+        m = yt.shape[1]
+        recluster = self.have_to_recluster(state)
+        mixes = []
+        clusterings = [] if recluster or state.clusterings is None else None
+        reuse = (
+            not optimize_theta
+            and clusterings is None
+            and state.moe_params is not None
+            and len(state.moe_params) == m
+        )
+        kw = dict(regr_names=gpc.regr_names, corr_names=gpc.corr_names,
+                  kpls_dim=gpc.kpls_dim, n_start=gpc.n_start,
+                  theta_init=self.theta_init, theta_bounds=self.theta_bounds,
+                  device=self.device, dtype=self.dtype)
+        for k in range(m):
+            seed = int(state.rng.integers(0, 2**31))
+            if clusterings is not None:
+                mix = train_moe(xt, yt[:, k], n_clusters=gpc.n_clusters,
+                                recombination=gpc.recombination, seed=seed,
+                                **kw)
+                clusterings.append((mix.gmx, mix.recombination))
+            else:
+                gmx, recomb = state.clusterings[k]
+                fixed = state.moe_params[k] if reuse else None
+                if fixed is not None and len(fixed) != gmx.n_clusters:
+                    fixed = None
+                mix = train_moe_on_clusters(xt, yt[:, k], gmx, recomb,
+                                            seed=seed, fixed_params=fixed,
+                                            **kw)
+            mixes.append(mix)
+        if clusterings is not None:
+            state.clusterings = clusterings
+        state.moe_params = [expert_params(mix) for mix in mixes]
+        return tuple(mix.to_model() for mix in mixes)
 
     def _gp_n_start(self, state: EgorState) -> int:
         """Effective MLE multistart width of this iteration's refit.
@@ -481,6 +541,38 @@ class EgorSolver:
             and not os.environ.get("EGOBOX_NO_FUSED_STEP")
         )
 
+    def _fast_path_moe_ok(self, state: EgorState, fcstrs) -> bool:
+        """egobox_tpu's gate of the fused clustered iteration: clustered
+        surrogates with one regression and one correlation model (no CV
+        selection), a clustering that stands for this iteration (the
+        clustering itself is made on the host path), one (k,
+        recombination) for every output, and the other conditions of the
+        fused path. ``EGOBOX_NO_FUSED_MOE`` (or ``EGOBOX_NO_FUSED_STEP``)
+        selects the host path."""
+        gpc = self.config.gp_config
+        multi_combo = (
+            len(gpc.regr_names) > 1 or len(gpc.corr_names) > 1
+        )
+        if multi_combo or gpc.n_clusters == 1:
+            return False
+        if (
+            os.environ.get("EGOBOX_NO_FUSED_STEP")
+            or os.environ.get("EGOBOX_NO_FUSED_MOE")
+            or os.environ.get("EGOR_USE_GP_VAR_PORTFOLIO")
+        ):
+            return False
+        if self.config.q_points != 1 or self.config.coego_n_coop > 1:
+            return False
+        if fcstrs and not self._fcstrs_traceable(fcstrs):
+            return False
+        if state.clusterings is None or self.have_to_recluster(state):
+            return False
+        if len(state.clusterings) != state.y_data.shape[1]:
+            return False
+        ks = {g.n_clusters for g, _ in state.clusterings}
+        recombs = {r for _, r in state.clusterings}
+        return len(ks) == 1 and len(recombs) == 1
+
     def _theta_setup(self, state: EgorState, m: int):
         """Warm-start inits (m, dim) and the theta bounds, as tensors on the
         solver's device; the inits are clipped inside the fused program."""
@@ -516,6 +608,18 @@ class EgorSolver:
             optimizer=_OPT_NAME[cfg.infill_optimizer],
             fcstr_fns=tuple(fcstrs),
         )
+
+    def _box_inputs(self, state: EgorState, xlimits: np.ndarray,
+                    fmin: float, n_fcstr: int) -> dict:
+        """The fused programs' box, best value and constraint tolerances,
+        on the solver's device."""
+        n_cstr = self.config.n_cstr
+        return dict(
+            lo=self._tensor(xlimits[:, 0]), hi=self._tensor(xlimits[:, 1]),
+            fmin=self._tensor(fmin),
+            cstr_tols=self._tensor(state.cstr_tol[:n_cstr]),
+            fcstr_tols=(self._tensor(state.cstr_tol[n_cstr:n_cstr + n_fcstr])
+                        if n_fcstr else None))
 
     def _select_next_point_fused(
         self,
@@ -555,16 +659,9 @@ class EgorSolver:
         clouds = [self.draws.lhs(n_cloud, xlimits, LhsKind.MAXIMIN)
                   for _ in range(q)]
         starts = self._multistart_seeds(state, xt, xlimits, seed_xlimits)
-        n_cstr = cfg.n_cstr
-        n_fcstr = len(fcstrs)
-        inputs = dict(
-            xp=xp, yp=yp, mask=mask, theta0s=theta0s, theta_lo=t_lo,
-            theta_up=t_up, lo=self._tensor(xlimits[:, 0]),
-            hi=self._tensor(xlimits[:, 1]), fmin=self._tensor(fmin),
-            cstr_tols=self._tensor(state.cstr_tol[:n_cstr]),
-            fcstr_tols=(self._tensor(state.cstr_tol[n_cstr:n_cstr + n_fcstr])
-                        if n_fcstr else None),
-        )
+        inputs = dict(xp=xp, yp=yp, mask=mask, theta0s=theta0s,
+                      theta_lo=t_lo, theta_up=t_up,
+                      **self._box_inputs(state, xlimits, fmin, len(fcstrs)))
         key = (xp.shape, m, self.dtype, q, tuple(sorted(statics.items())))
         if q == 1:
             inputs.update(
@@ -614,6 +711,76 @@ class EgorSolver:
         return (arr[:, :self.nx], arr[:, self.nx + 1:],
                 float(-arr[0, self.nx]))
 
+    def _select_next_point_fused_moe(
+        self,
+        state: EgorState,
+        fmin: float,
+        xlimits: np.ndarray,
+        seed_xlimits: Optional[np.ndarray],
+        crit: str,
+        cstrat: str,
+        fcstrs: Sequence[Callable] = (),
+    ):
+        """The clustered iteration as one program, one host fetch
+        (egobox_tpu's ``_select_next_point_fused_moe``): the experts of every
+        output and cluster fitted as one stack of masked lanes, the mixture
+        infill in the same program. The standing clustering rides in as
+        tensor inputs (the GMM, its weights and the heaviside factor), so a
+        new clustering replays the same graph on new values; k and the
+        recombination are in the graph's signature. The draws are taken in
+        egobox_tpu's order: the fit seed from ``state.rng``, the scaling
+        cloud, the multistart seeds."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        xt, yt = state.x_data, state.y_data
+        m = yt.shape[1]
+        xp, yp, mask = self._pad(xt, yt)
+        gmxs = tuple(g.to(self.device, self.dtype)
+                     for g, _ in state.clusterings)
+        k = gmxs[0].n_clusters
+        smooth = state.clusterings[0][1] is Recombination.SMOOTH
+        _, t_lo, t_up = self._theta_setup(state, m)
+        dim = t_lo.shape[0]
+        theta0s = state.moe_theta_inits
+        if theta0s is None or tuple(theta0s.shape) != (m, k, dim):
+            base = (self.theta_init if self.theta_init is not None
+                    else np.full((dim,), 0.1))
+            theta0s = np.broadcast_to(np.asarray(base), (m, k, dim)).copy()
+        optimize_theta = (state.iter % cfg.q_optmod) == 0
+        statics = self._fused_statics(state, crit, cstrat, fcstrs,
+                                      optimize_theta)
+        # egobox_tpu's clustered iteration refits at the full width
+        statics["gp_n_start"] = self.spec.n_start
+        fit_draws = self.draws.fit_draws(int(state.rng.integers(0, 2**31)))
+        seeds = (fit_draws.lhs_seeds(self.spec.n_start, dim, torch.float64,
+                                     "cpu")
+                 if optimize_theta and self.spec.n_start > 0 else None)
+        cloud = self.draws.lhs(min(100 * self.nx, 1000), xlimits,
+                               LhsKind.MAXIMIN)
+        starts = self._multistart_seeds(state, xt, xlimits, seed_xlimits)
+        inputs = dict(
+            xp=xp, yp=yp, mask=mask, gmxs=gmxs,
+            theta0s=self._tensor(theta0s), theta_lo=t_lo, theta_up=t_up,
+            fit_seeds=None if seeds is None else self._tensor(seeds),
+            cloud=self._tensor(cloud), starts=self._tensor(starts),
+            **self._box_inputs(state, xlimits, fmin, len(fcstrs)))
+        key = ("moe", xp.shape, m, k, smooth, self.dtype,
+               tuple(sorted(statics.items())))
+        packed, models, theta_last = self.graphs.run(
+            key, lambda **kw: fused_select_point_moe(
+                **kw, k_clusters=k, smooth=smooth, **statics),
+            inputs, xp.shape)
+        state.moe_theta_inits = theta_last  # stays on the device
+        # the host-side expert parameters no longer match the carried
+        # thetas: a q_optmod skip on the host path must not reuse them
+        state.moe_params = None
+        self.last_models = models
+        record_gp_models(cfg.outdir, state.iter, models)
+        arr = packed.double().cpu().numpy()  # the one host fetch
+        self.last_times = {"select": time.perf_counter() - t0,
+                           "graph": self.graphs.stats.last}
+        return arr[None, :self.nx], np.zeros((1, m)), float(-arr[self.nx])
+
     def select_next_points(
         self,
         state: EgorState,
@@ -656,6 +823,10 @@ class EgorSolver:
             return self._select_next_point_fused(
                 state, fmin, xlimits, seed_xlimits, crit, cstrat, fcstrs,
                 qei)
+        if self._fast_path_moe_ok(state, fcstrs):
+            fmin = float(state.y_data[state.best_index, 0])
+            return self._select_next_point_fused_moe(
+                state, fmin, xlimits, seed_xlimits, crit, cstrat, fcstrs)
 
         surrogate_tols = self._tensor(state.cstr_tol[:n_cstr])
         n_fcstr = len(fcstrs)

@@ -4,9 +4,8 @@ Host-side container (port of egobox_tpu/ego/state.py): the DoE grows each
 iteration, so the state lives in numpy and goes to the solver's device per
 phase. Everything is plain data so it JSON-serializes for hot-start
 checkpointing; the payload is the one egobox_tpu's ``to_dict`` writes, so a
-checkpoint of either package resumes in the other. Clustered (MoE)
-surrogates are not ported: a payload that carries ``clusterings`` or
-``moe_params`` raises.
+checkpoint of either package resumes in the other, the clustered
+surrogates' ``clusterings`` and ``moe_params`` included.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -47,6 +47,10 @@ class EgorState:
     # reused as Fixed hyperparameters on q_optmod skip iterations
     # (ref: solver_impl.rs:643-645)
     moe_params: Optional[list] = None
+    # (m, k, dim) per-expert theta warm starts carried on the device by the
+    # fused clustered iteration (ego/fused_step.fused_select_point_moe);
+    # not checkpointed: a hot start refits from scratch
+    moe_theta_inits: Optional[object] = None
     rng: np.random.Generator = field(
         default_factory=lambda: np.random.default_rng(42)
     )
@@ -89,8 +93,8 @@ class EgorState:
             "activity": None
             if self.activity is None
             else [np.asarray(g).tolist() for g in self.activity],
-            "clusterings": _no_moe("clusterings", self.clusterings),
-            "moe_params": _no_moe("moe_params", self.moe_params),
+            "clusterings": _clusterings_to_json(self.clusterings),
+            "moe_params": self.moe_params,
             "rng_state": self.rng.bit_generator.state,
         }
 
@@ -122,17 +126,55 @@ class EgorState:
             activity=None
             if d.get("activity") is None
             else [np.asarray(g, dtype=int) for g in d["activity"]],
-            clusterings=_no_moe("clusterings", d.get("clusterings")),
-            moe_params=_no_moe("moe_params", d.get("moe_params")),
+            clusterings=_clusterings_from_json(d.get("clusterings")),
+            moe_params=_moe_params_from_json(d.get("moe_params")),
             rng=rng,
         )
 
 
-def _no_moe(name: str, value):
-    if value is not None:
-        raise NotImplementedError(
-            f"egobox_torch: EgorState.{name} belongs to the clustered (MoE) "
-            "surrogates, which are not ported (ROADMAP Queue 1: MoE "
-            "surrogates in Egor)"
-        )
-    return None
+def _clusterings_to_json(clusterings) -> Optional[list]:
+    """Per-output (GaussianMixture, Recombination) pairs as plain data
+    (ref: egor_state.rs:25-105 serde on clusterings)."""
+    if clusterings is None:
+        return None
+    out = []
+    for gmx, recomb in clusterings:
+        out.append({
+            "weights": gmx.weights.tolist(),
+            "means": gmx.means.tolist(),
+            "covariances": gmx.covariances.tolist(),
+            "precisions_chol": gmx.precisions_chol.tolist(),
+            "heaviside_factor": float(gmx.heaviside_factor),
+            "recombination": recomb.value,
+        })
+    return out
+
+
+def _clusterings_from_json(payload) -> Optional[list]:
+    """The clusterings as float64 CPU tensors; the solver moves them to its
+    device and type."""
+    if payload is None:
+        return None
+    from ..moe.gaussian_mixture import GaussianMixture
+    from ..types import Recombination
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.float64)
+
+    return [(GaussianMixture(
+        weights=t(g["weights"]), means=t(g["means"]),
+        covariances=t(g["covariances"]),
+        precisions_chol=t(g["precisions_chol"]),
+        heaviside_factor=t(g["heaviside_factor"]),
+    ), Recombination(g["recombination"])) for g in payload]
+
+
+def _moe_params_from_json(payload) -> Optional[list]:
+    """JSON turns tuples into lists: back to the (trend, corr, theta)
+    triples ``train_moe_on_clusters`` takes."""
+    if payload is None:
+        return None
+    return [
+        [None if p is None else (p[0], p[1], p[2]) for p in per_output]
+        for per_output in payload
+    ]

@@ -12,6 +12,10 @@ The fits of all outputs run as one lockstep stack of outputs x restarts
 (``gp.fit.fit_gp_outputs``, in chunks the design's size sets), on the
 unpadded design: ``mask`` is all ones, which fits exactly what egobox_tpu's
 padded and masked fit computes. KPLS fits go output by output.
+
+The clustered surrogates are the other container: a tuple of one
+``moe.MoeModel`` per output (``surrogate_valvar_single`` /
+``surrogate_valvar_cloud`` take either).
 """
 
 from __future__ import annotations
@@ -27,12 +31,7 @@ from ..gp.fit import GP_DEFAULT_THETA_BOUNDS, GP_DEFAULT_THETA_INIT
 from ..gp.gp import GpModel
 from ..gp.kernels import _DENSE_BUDGET, _log_corr_terms, _takes_k1, corr_cross
 from ..gp.trends import trend_basis
-
-_MOE_MESSAGE = (
-    "egobox_torch: clustered (MoE) surrogates are not ported (ROADMAP Queue "
-    "1: MoE surrogates in Egor)"
-)
-
+from ..moe.moe import moe_predict_valvar_single
 
 @dataclass(frozen=True)
 class GpSpec:
@@ -167,22 +166,25 @@ def train_gp_surrogates(
     return stack_models(outs)
 
 
-def _check_container(models) -> None:
-    if isinstance(models, (tuple, list)):
-        raise NotImplementedError(_MOE_MESSAGE)
+def _mixtures_valvar(models, x: torch.Tensor):
+    """(means, vars), each (m, ...), of a tuple of mixtures at x (..., nx)."""
+    pairs = [moe_predict_valvar_single(mo, x) for mo in models]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
 
 
 def surrogate_valvar_single(models, x: torch.Tensor):
-    """Posterior (means, vars) at one point, or one point per lane, for the
-    surrogate container. A tuple of mixtures (egobox_tpu's clustered
-    container) raises."""
-    _check_container(models)
+    """Posterior (means, vars) at one point, or one point per lane, for
+    either container: the stacked ``GpModel`` or a tuple of mixtures."""
+    if isinstance(models, tuple):
+        return _mixtures_valvar(models, x)
     return predict_valvar_single(models, x)
 
 
 def surrogate_valvar_cloud(models, x: torch.Tensor):
     """Posterior (means, vars) over a cloud: (m, p) pairs."""
-    _check_container(models)
+    if isinstance(models, tuple):
+        return _mixtures_valvar(models, x)
     return predict_valvar_cloud(models, x)
 
 

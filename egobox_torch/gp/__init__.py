@@ -2,7 +2,19 @@
 likelihood, fit and predict."""
 
 from .fit import GpFitError, fit_gp, fit_gp_core
-from .gp import GpModel, predict, predict_valvar, predict_var
+from .gp import (
+    GpModel,
+    inner_params,
+    posterior_cov,
+    predict,
+    predict_gradients,
+    predict_kth_derivatives,
+    predict_valvar,
+    predict_valvar_gradients,
+    predict_var,
+    predict_var_gradients,
+    sample,
+)
 from .kernels import (
     KERNEL_NAMES,
     THETA_INFLUENCE_FACTORS,
@@ -33,15 +45,22 @@ __all__ = [
     "corr_value",
     "fit_gp",
     "fit_gp_core",
+    "inner_params",
     "log_corr_cross",
     "make_neg_reduced_likelihood",
     "make_neg_rlf_residual_api",
     "n_basis",
     "pls_rotations",
+    "posterior_cov",
     "predict",
+    "predict_gradients",
+    "predict_kth_derivatives",
     "predict_valvar",
+    "predict_valvar_gradients",
     "predict_var",
+    "predict_var_gradients",
     "reduced_likelihood",
+    "sample",
     "theta_bounds_heuristic",
     "trend_basis",
 ]

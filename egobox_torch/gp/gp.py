@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from .kernels import corr_cross
+from .likelihood import GpInnerParams
 from .trends import trend_basis
 
 
@@ -92,3 +93,82 @@ def predict_valvar(model: GpModel, x: torch.Tensor):
     xnorm = _xnorm(model, x)
     r = _corr_to_train(model, xnorm)
     return _mean(model, xnorm, r), _mse(model, *_rt_u(model, xnorm, r))
+
+
+def _rowwise_grad(fn, x: torch.Tensor) -> torch.Tensor:
+    """d fn(x)_i / d x_i for a function whose row i depends on x_i alone
+    (every prediction path here): one backward pass of the sum gives every
+    row's gradient, the per-row ``jax.grad`` under ``vmap`` of
+    egobox_tpu. Inputs that require grad keep the Gram on the plain formula
+    (gp/kernels.py), as egobox_tpu differentiates its own formula."""
+    with torch.enable_grad():
+        xg = x.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(xg).sum(), xg)
+    return g
+
+
+def predict_gradients(model: GpModel, x: torch.Tensor) -> torch.Tensor:
+    """d mean / dx per row -> (n, nx), exact by autograd (ref: the
+    hand-written jacobians of algorithm.rs:510-550, test oracles here)."""
+    return _rowwise_grad(lambda xx: predict(model, xx), x)
+
+
+def predict_kth_derivatives(model: GpModel, x: torch.Tensor,
+                            kx: int) -> torch.Tensor:
+    """d mean / dx_kx per row -> (n,) (ref: algorithm.rs:443-506; exact for
+    every kernel through the full gradient)."""
+    return predict_gradients(model, x)[:, kx]
+
+
+def predict_var_gradients(model: GpModel, x: torch.Tensor) -> torch.Tensor:
+    """d var / dx per row -> (n, nx) (ref: algorithm.rs:554-617)."""
+    return _rowwise_grad(lambda xx: predict_var(model, xx), x)
+
+
+def predict_valvar_gradients(model: GpModel, x: torch.Tensor):
+    """(d mean / dx, d var / dx) (ref: algorithm.rs:712-726)."""
+    return predict_gradients(model, x), predict_var_gradients(model, x)
+
+
+def posterior_cov(model: GpModel, x: torch.Tensor) -> torch.Tensor:
+    """Posterior covariance at x (m, nx) -> (m, m), denormalized
+    (ref: algorithm.rs:310-326)."""
+    xnorm = _xnorm(model, x)
+    r = _corr_to_train(model, xnorm)
+    rt, u = _rt_u(model, xnorm, r)
+    k = corr_cross(model.corr, xnorm, xnorm, model.theta, model.w_star)
+    return model.sigma2 * (k - rt.T @ rt + u.T @ u)
+
+
+def sample(model: GpModel, x: torch.Tensor, n_traj: int,
+           generator: Optional[torch.Generator] = None, method: str = "eig",
+           normals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conditioned trajectories at x (m, nx) -> (m, n_traj)
+    (ref: algorithm.rs:383-410, 1153-1194): mean + C z with C C^T the
+    posterior covariance (its symmetric square root for ``"eig"``, its
+    jittered Cholesky factor for ``"chol"``). The standard normals z
+    (m, n_traj) are ``normals`` when given (a test hands in egobox_tpu's),
+    else drawn from ``generator`` on the CPU."""
+    cov = posterior_cov(model, x)
+    m = cov.shape[0]
+    if method == "chol":
+        eye = torch.eye(m, dtype=cov.dtype, device=cov.device)
+        c = torch.linalg.cholesky(cov + 1e-9 * model.sigma2 * eye)
+    elif method == "eig":
+        evals, evecs = torch.linalg.eigh(cov)
+        evals = torch.clamp(evals, min=1e-9)
+        c = evecs @ (torch.sqrt(evals)[:, None] * evecs.T)
+    else:
+        raise ValueError(f"sample: unknown method {method!r}")
+    if normals is None:
+        normals = torch.randn((m, n_traj), generator=generator,
+                              dtype=torch.float64)
+    z = normals.to(dtype=cov.dtype, device=cov.device)
+    return predict(model, x)[:, None] + c @ z
+
+
+def inner_params(model: GpModel) -> GpInnerParams:
+    """The GLS byproducts of the model."""
+    return GpInnerParams(sigma2=model.sigma2, beta=model.beta,
+                         gamma=model.gamma, r_chol=model.r_chol, ft=model.ft,
+                         ft_qr_r=model.ft_qr_r)

@@ -624,6 +624,170 @@ def test_graph_cache_drops_the_graphs_of_a_size_left(dev):
     assert cache.stats.pool_peak_bytes > 0
 
 
+# ---------------------------------------------------------------------------
+# the mixture of experts and the fused clustered iteration
+# ---------------------------------------------------------------------------
+
+
+def _piecewise_np(x):
+    x = np.atleast_2d(x)
+    left = (x - 3.5) * np.sin((x - 3.5) / np.pi)
+    right = 0.5 * (x - 18.0) ** 2 - 15.0
+    return np.where(x < 10.0, left, right).reshape(-1, 1)
+
+
+def _clustered_solver(device):
+    """A solver of 2 clusters and a 12-point DoE with its clustering made
+    (the host path of the first iteration)."""
+    from egobox_torch.ego import EgorConfig, EgorSolver, GpConfig
+
+    solver = EgorSolver(EgorConfig(gp_config=GpConfig(n_clusters=2,
+                                                      n_start=3),
+                                   seed=0, n_doe=12, n_start=6),
+                        np.array([[0.0, 25.0]]), device=device)
+    st = solver.init_state(_piecewise_np)
+    solver._train_moe(st, st.x_data, st.y_data, True)
+    return solver, st
+
+
+def _moe_step(solver, st, clusterings):
+    """One clustered iteration from ``st``'s design on fresh draws and a
+    fresh state, the given clustering standing."""
+    fresh = solver.init_state(None, doe=st.x_data, y_doe=st.y_data)
+    fresh.clusterings = clusterings
+    solver.draws = type(solver.draws)(3)
+    xk, _, f = solver.select_next_points(fresh)
+    return xk[0], f, solver.graphs.stats.last
+
+
+def test_captured_fused_moe_step_equals_its_eager_run(dev):
+    """The fused clustered iteration three times on the same inputs through
+    the graph cache (eager, capture, replay), float64: rtol 1e-9."""
+    solver, st = _clustered_solver("cuda")
+    assert solver._fast_path_moe_ok(st, ())
+    runs = [_moe_step(solver, st, st.clusterings) for _ in range(3)]
+    assert [r[2] for r in runs] == ["eager", "capture", "replay"]
+    for xk, f, _ in runs[1:]:
+        np.testing.assert_allclose(xk, runs[0][0], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(f, runs[0][1], rtol=1e-9)
+
+
+def test_a_replay_after_a_recluster_uses_the_new_mixture(dev):
+    """The GMM, its weights and the heaviside factor are inputs of the
+    captured graph: after a new clustering (here a new heaviside factor and
+    new means) the replay answers what an eager run of the new clustering
+    answers, not what the captured one did."""
+    import dataclasses
+
+    solver, st = _clustered_solver("cuda")
+    old = st.clusterings
+    g, recomb = old[0]
+    new = [(dataclasses.replace(g, means=g.means + 1.5).with_heaviside(
+        0.3), recomb)]
+    first = [_moe_step(solver, st, old) for _ in range(2)]
+    assert [r[2] for r in first] == ["eager", "capture"]
+    replay = _moe_step(solver, st, new)
+    assert replay[2] == "replay"
+    ref_solver, _ = _clustered_solver("cuda")
+    ref = _moe_step(ref_solver, st, new)
+    assert ref[2] == "eager"
+    np.testing.assert_allclose(replay[0], ref[0], rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(replay[1], ref[1], rtol=1e-9)
+    assert not np.allclose(replay[1], first[1][1], rtol=1e-6)
+
+
+@pytest.mark.parametrize("n1,n2", [(1424, 1424), (1784, 1784),
+                                   (2208, 2208), (800, 1784)])
+def test_k1_at_the_mixture_fold_fit_shapes(dev, n1, n2):
+    """K1 at the shapes the mixture's CV fold fits, expert fits and
+    heaviside predictions launch it at (chip_smoke.py's moe phase)."""
+    x1, x2, th = _k1_inputs(dev, n1, n2, 10, n1 + n2, theta=(0.1, 0.6))
+    if n1 == n2:
+        x2 = x1
+    torch.testing.assert_close(ck.corr_cross_tile("matern52", x1, x2, th),
+                               ck.corr_cross_plain("matern52", x1, x2, th),
+                               rtol=0, atol=K1_ATOL)
+
+
+def test_train_moe_on_the_card_equals_the_cpu_at_fixed_theta(dev):
+    """The experts of a mixture retrained on the card at fixed (trend,
+    corr, theta) and on the CPU, float64: likelihoods rtol 1e-9,
+    predictions and variances atol 1e-9. Two regimes on two blobs of a 2-d
+    input with 10 % noise keep every expert's Gram well conditioned (on a
+    1-d branch the fit drives theta to a near-singular Gram, where the two
+    devices' roundings differ in the likelihood's sixth digit)."""
+    from egobox_torch import moe
+
+    rng = np.random.RandomState(0)
+    x = np.vstack([rng.uniform(0, 1, (20, 2)), rng.uniform(2, 3, (20, 2))])
+    y = np.where(x[:, 0] < 1.5, np.sin(4 * x[:, 0]) * np.cos(3 * x[:, 1]),
+                 4.0 + x[:, 0] * x[:, 1]) + 0.1 * rng.standard_normal(40)
+    mix = moe.train_moe(x, y, n_clusters=2, n_start=2, device="cpu")
+    fixed = moe.expert_params(mix)
+    g = np.linspace(-0.2, 3.2, 6)
+    xq = np.stack(np.meshgrid(g, g), axis=-1).reshape(-1, 2)
+    out = []
+    for device in ("cuda", "cpu"):
+        m = moe.train_moe_on_clusters(
+            x, y, mix.gmx.to(device), fixed_params=fixed, device=device,
+            dtype=torch.float64)
+        out.append((torch.stack([e.likelihood for e in m.experts]).cpu(),
+                    m.predict(xq).cpu(), m.predict_var(xq).cpu()))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-9, atol=0)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=0, atol=1e-9)
+    torch.testing.assert_close(out[0][2], out[1][2], rtol=0, atol=1e-9)
+
+
+def test_train_moe_card_vs_cpu_on_the_piecewise_design(dev):
+    """The egor-moe2-piecewise cell's kind of data (the 1-d piecewise
+    objective, 20 points), where the fit drives an expert's theta to a
+    near-singular Gram: retrained at fixed (trend, corr, theta) on the card
+    and on the CPU, float64, each expert's likelihood within the
+    first-order bound of its conditioning, n * cond(R) * eps * (1 + |l|),
+    and the predictions within cond(R) * eps * max|y|. Beside it, printed:
+    cond(R), the card's difference and the CPU's own spread when the rows
+    come in another order."""
+    from egobox_torch import moe
+
+    eps = float(np.finfo(np.float64).eps)
+    rng = np.random.RandomState(0)
+    x = np.sort(rng.uniform(0.0, 25.0, (20, 1)), axis=0)
+    y = np.where(x[:, 0] < 10.0, (x[:, 0] - 3.5) * np.sin((x[:, 0] - 3.5)
+                                                           / np.pi),
+                 0.5 * (x[:, 0] - 18.0) ** 2 - 15.0)
+    mix = moe.train_moe(x, y, n_clusters=2, n_start=2, device="cpu")
+    fixed = moe.expert_params(mix)
+    perm = rng.permutation(20)
+    xq = np.linspace(-1.0, 26.0, 30)[:, None]
+    fits = {}
+    for name, device, rows in (("cuda", "cuda", slice(None)),
+                               ("cpu", "cpu", slice(None)),
+                               ("cpu-permuted", "cpu", perm)):
+        fits[name] = moe.train_moe_on_clusters(
+            x[rows], y[rows], mix.gmx.to(device), fixed_params=fixed,
+            device=device, dtype=torch.float64)
+    conds = []
+    for c, (ea, eb, ep) in enumerate(zip(fits["cuda"].experts,
+                                         fits["cpu"].experts,
+                                         fits["cpu-permuted"].experts)):
+        cond = float(torch.linalg.cond(eb.r_chol @ eb.r_chol.T))
+        n_c, lik = int(eb.mask.sum()), float(eb.likelihood)
+        d_card = abs(float(ea.likelihood) - lik)
+        d_perm = abs(float(ep.likelihood) - lik)
+        print(f"expert {c}: n {n_c} theta {eb.theta.tolist()} cond(R) "
+              f"{cond:.3e} likelihood {lik:.10g} |card - cpu| {d_card:.3e} "
+              f"|cpu permuted - cpu| {d_perm:.3e}")
+        assert d_card <= n_c * cond * eps * (1.0 + abs(lik))
+        conds.append(cond)
+    tol = max(conds) * eps * float(np.max(np.abs(y)))
+    for f in ("predict", "predict_var"):
+        a = getattr(fits["cuda"], f)(xq).cpu()
+        b = getattr(fits["cpu"], f)(xq)
+        print(f"{f}: |card - cpu| {float((a - b).abs().max()):.3e} "
+              f"(bound {tol:.3e})")
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
 def test_a_capture_that_cannot_succeed_raises(dev):
     """An objective that reads a device value on the host (``.item()``)
     cannot be captured: the traced run raises when it captures, and does

@@ -1,7 +1,9 @@
 """The host-side modules of egobox_torch's Egor loop against egobox_tpu's on
 random inputs (exact), the traceable picker of the fused programs with
 JAX's draws (atol 1e-12), and every path the port leaves out: each raises
-``NotImplementedError`` naming its ROADMAP item. ``device="cpu"``.
+``NotImplementedError`` naming its ROADMAP item (the clustered surrogates,
+which raised until they were ported, run in test_torch_moe_egor.py).
+``device="cpu"``.
 """
 
 import json
@@ -41,8 +43,6 @@ def xsinx(x):
 @pytest.mark.parametrize("build,item", [
     (lambda: EgorBatch([xsinx, xsinx], np.array([[0.0, 25.0]]),
                        device="cpu", mesh=object()), "parallel"),
-    (lambda: Egor([[0.0, 25.0]], n_clusters=2, seed=1, device="cpu")
-     .minimize(xsinx, max_iters=1), "MoE surrogates in Egor"),
     (lambda: Egor([[0.0, 25.0]] * 4, coego_n_coop=2, seed=1, device="cpu")
      .minimize(lambda x: np.sum(x**2, 1, keepdims=True), max_iters=1),
      "CoEGO and the sigma-weight portfolio"),
@@ -51,14 +51,6 @@ def xsinx(x):
         max_iters=1), "native Nelder-Mead polish"),
     (lambda: Egor([[0.0, 25.0]], seed=1, device="cpu").solver._fcstr_polish(),
      "native Nelder-Mead polish"),
-    (lambda: EgorState.from_dict(dict(
-        EgorState(np.zeros((1, 1)), np.zeros((1, 1)), np.zeros((1, 0)),
-                  np.zeros(0)).to_dict(), clusterings=[{}])),
-     "MoE surrogates in Egor"),
-    (lambda: EgorState.from_dict(dict(
-        EgorState(np.zeros((1, 1)), np.zeros((1, 1)), np.zeros((1, 0)),
-                  np.zeros(0)).to_dict(), moe_params=[[None]])),
-     "MoE surrogates in Egor"),
 ])
 def test_not_ported_paths_raise_with_their_roadmap_item(build, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -175,3 +175,96 @@ def test_traced_run_repeats_with_its_seed():
     r1 = _egor(seed=9, n_doe=5).minimize(xsinx_t, max_iters=6)
     r2 = _egor(seed=9, n_doe=5).minimize(xsinx_t, max_iters=6)
     np.testing.assert_array_equal(r1.x_doe, r2.x_doe)
+
+
+class _JaxTracedDraws:
+    """egobox_tpu's draws of a traced run in the order the port takes them
+    (fit seeds, picker, scaling cloud per step): one base key per chunk
+    from the solver's key chain, step j's keys ``split(fold_in(base, j),
+    3)`` (ego/fused_run.py), for chunks of ``sched`` steps."""
+
+    def __init__(self, seed, sched):
+        import jax
+
+        key = jax.random.key(seed)
+        self.bases = []
+        for _ in sched:
+            key, sub = jax.random.split(key)
+            self.bases.append(sub)
+        self.sched, self.step = sched, 0
+
+    def _keys(self):
+        import jax
+
+        s = self.step
+        for c, k in enumerate(self.sched):
+            if s < k:
+                return jax.random.split(jax.random.fold_in(self.bases[c], s),
+                                        3)
+            s -= k
+        raise IndexError("more steps than the schedule holds")
+
+    def fit_draws(self, seed):
+        import jax.numpy as jnp
+
+        from egobox_tpu.doe.lhs import maximin_lhs
+
+        kfit = self._keys()[0]
+
+        class _Fit:
+            def lhs_seeds(self, n, dim, dtype, device):
+                return torch.from_numpy(np.array(maximin_lhs(
+                    kfit, n, dim, False, 5, jnp.float64)))
+
+        return _Fit()
+
+    def picker(self, nb, n_start, nx):
+        import jax
+        import jax.numpy as jnp
+
+        from egobox_tpu.doe.lhs import maximin_lhs
+
+        ksub, kfill = jax.random.split(self._keys()[2])
+        return (np.array(jax.random.uniform(ksub, (nb,), dtype=jnp.float64)),
+                np.array(maximin_lhs(kfill, n_start, nx, False, 5,
+                                     jnp.float64)))
+
+    def lhs(self, n, xlimits, kind=None):
+        import jax.numpy as jnp
+
+        from egobox_tpu.doe.lhs import LhsKind, lhs_normalized
+
+        pts = np.array(lhs_normalized(self._keys()[1], n, xlimits.shape[0],
+                                      LhsKind.MAXIMIN, jnp.float64))
+        self.step += 1
+        return pts * (xlimits[:, 1] - xlimits[:, 0]) + xlimits[:, 0]
+
+
+def test_traced_xsinx_bucket_32_x_gate_follows_the_draws(monkeypatch):
+    """The x gate of the traced xsinx at bucket 32 is a property of the
+    draw stream, not of the port's pad or picker: at seed 3 the port's own
+    stream ends at x = 18.93306 (1.9e-3 off, the gate is 1e-3) where
+    egobox_tpu's ends at 18.93521; from egobox_tpu's DoE and with its draws
+    handed in, the port meets the gate as egobox_tpu does."""
+    import jax.numpy as jnp
+
+    import egobox_tpu as jegx
+
+    monkeypatch.setenv("EGOBOX_SHAPE_BUCKET", "32")
+
+    def xsinx_j(x):
+        return (x - 3.5) * jnp.sin((x - 3.5) / jnp.pi)
+
+    doe = np.array([[21.70194242], [0.00866018], [13.35301784],
+                    [17.34547325], [8.25618931]])  # egobox_tpu's, seed 3
+    rj = jegx.Egor([[0.0, 25.0]], seed=3, traced_run=True, doe=doe).minimize(
+        xsinx_j, max_iters=20)
+    egor = _egor(seed=3, doe=doe)
+    egor.solver.draws = _JaxTracedDraws(3, [1, 19])
+    rt = egor.minimize(xsinx_t, max_iters=20)
+    assert abs(rj.x_opt[0] - 18.935) < 1e-3
+    assert abs(rt.x_opt[0] - 18.935) < 1e-3
+    assert abs(rt.y_opt[0] + 15.125) < 1e-3
+    # the first 7 rows (DoE, the cold fit's proposal and the next) agree
+    np.testing.assert_allclose(rt.x_doe[:7], np.asarray(rj.x_doe)[:7],
+                               atol=1e-6)

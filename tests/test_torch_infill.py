@@ -250,8 +250,38 @@ def test_feas_flag_selects_between_the_static_structures(setup):
 
 
 def test_mixture_container_raises():
-    """egobox_tpu's clustered container is a tuple of mixtures."""
-    with pytest.raises(NotImplementedError, match="MoE surrogates in Egor"):
+    """egobox_tpu's clustered container is a tuple of mixtures. Since the
+    mixture is ported a tuple of ``MoeModel`` is served, one posterior per
+    output as ``moe_predict_valvar_single`` gives it, at one point, per
+    lane and over a cloud (test_torch_moe.py holds the mixtures against
+    egobox_tpu); a tuple of anything else raises."""
+    from egobox_torch import gp as tgp
+    from egobox_torch import moe as tmoe
+
+    with pytest.raises(AttributeError):
         tsur.surrogate_valvar_single((object(),), torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="MoE surrogates in Egor"):
+    with pytest.raises(AttributeError):
         tsur.surrogate_valvar_cloud((object(),), torch.zeros((3, 2)))
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1.0, 1.0, (12, 2))
+    experts = tuple(tgp.fit_gp(x, np.sin(3.0 * x[:, i]), n_start=0,
+                               max_iters=3, device="cpu") for i in (0, 1))
+    gmx = tmoe.GaussianMixture(
+        weights=torch.tensor([0.4, 0.6], dtype=torch.float64),
+        means=torch.tensor([[-0.5, 0.0], [0.5, 0.0]], dtype=torch.float64),
+        covariances=torch.eye(2, dtype=torch.float64).expand(2, 2, 2),
+        precisions_chol=torch.eye(2, dtype=torch.float64).expand(2, 2, 2),
+        heaviside_factor=torch.tensor(1.0, dtype=torch.float64))
+    models = (tmoe.MoeModel(experts, gmx, True),
+              tmoe.MoeModel(experts, gmx, False))
+    xq = torch.from_numpy(rng.uniform(-1.0, 1.0, (4, 3, 2)))
+    means, vrs = tsur.surrogate_valvar_single(models, xq)
+    assert means.shape == vrs.shape == (2, 4, 3)
+    for j, mo in enumerate(models):
+        m1, v1 = tmoe.moe_predict_valvar_batch(mo, xq.reshape(-1, 2))
+        torch.testing.assert_close(means[j].reshape(-1), m1, rtol=0, atol=0)
+        torch.testing.assert_close(vrs[j].reshape(-1), v1, rtol=0, atol=0)
+    # another batch size: the same sums up to the last bit
+    mc, vc = tsur.surrogate_valvar_cloud(models, xq[0])
+    torch.testing.assert_close(mc, means[:, 0], rtol=1e-12, atol=1e-15)
+    torch.testing.assert_close(vc, vrs[:, 0], rtol=1e-12, atol=1e-15)
