@@ -67,9 +67,27 @@ Phases (any failure raises and the script exits non-zero):
    float64, the holdout Q2 against a one-cluster fit;
 12. egor-moe2-piecewise: the clustered Egor (2 clusters, 15 iterations) on
    the fused clustered path at seeds 42, 7, 11, 23 and on the host path at
-   42, each run against its gate (``egor_moe_phase``).
+   42, each run against its gate (``egor_moe_phase``);
+13. sgp-fit-n50k-m512-d10 (``sgp_phase``): bench.py's sparse recipe
+   (Griewank, d=10, x / 600, 50 000 points plus 5 % noise, FITC, 512
+   inducing points, 2 starts, 30 iterations, the 2 000-point dense warm
+   start; numpy float32 in, no device: float64 algebra, float32 points and
+   Grams) with (a) the squared exponential and (b) Matern 5/2, where K1
+   builds every 512 x 50 000 cross Gram of the fit through K1Gram
+   (launches = likelihood evaluations + 1) and the holdout's Grams: fit
+   and warm-start seconds, lanes x iterations, K1 launches by shape each
+   held against the plain version, the theta gradient of the fit's Gram
+   against a float64 autograd of the plain formula, the likelihood against
+   a float64 recomputation of the same model, holdout Q2 >= 0.98 (bench.py
+   SGP_Q2_MIN), (b)'s optimum against the same fit of float64 data, the
+   times of K1 at 512 x 50 000 and 2 000 x 512 and of the backward's
+   contraction; (c) ``SparseGpMix`` (Matern 5/2, VFE, 256 inducing points;
+   float64, as the API takes its data) on 20 000 points saved to JSON,
+   loaded and predicting the holdout to the bit; (d) gpqa's assessment of
+   that file, 5 folds; (e) ``train_moe(gp_type="sparse")`` of 2 VFE
+   experts on moe_data.
 
-``--phases kernels,slice,egor,moe`` runs a subset after the build (and
+``--phases kernels,slice,egor,moe,sgp`` runs a subset after the build (and
 then prints neither the kernels line nor the result line).
 
 Every Egor phase prints its seconds per EGO iteration (per phase on the
@@ -79,7 +97,8 @@ PyTorch's sync debug mode reports), the graphs captured, their capture
 seconds, the most memory their pool held, the graphs dropped, and the
 replays per iteration.
 
-Phases 6-12 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` with no device
+Phases 6-13 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
+``gp.fit_sgp`` / ``SparseGpMix`` with no device
 (the card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
@@ -125,6 +144,26 @@ G24_TOL = 1e-3
 MOE_N, MOE_HOLD, MOE_Q2_SLACK = 4000, 1000, 0.01
 MOE_CORRS = ("squared_exponential", "matern52")
 MOE_EGOR_SEEDS = (42, 7, 11, 23)
+# the sparse GP phase: bench.py:128-165's recipe (50 000 points, 512
+# inducing points, d=10, 2 000 holdout points) and its gate (bench.py:121-125)
+SGP_N, SGP_M, SGP_HOLD = 50_000, 512, 2_000
+SGP_FIT_KW = dict(n_inducing=SGP_M, n_start=2, max_iters=30, seed=1,
+                  subsample_warmstart=2000)
+SGP_Q2_MIN = 0.98
+# the fit's likelihood (float64 algebra, float32 Grams: the Matern 5/2
+# ones K1's) against a float64 recomputation of the same model, relative;
+# the Matern fit's optimum, in the float64 model, below the same fit of
+# float64 data by at most this share (a float32 optimum above it is no
+# fault: the float64 lanes stop at 30 iterations too); the theta gradient
+# of the fit's Gram (K1Gram) against float64 autograd, over its largest
+# component: 2.0e-7 when sound, a backward at theta (1 + 1e-5) reads
+# 9.1e-6, the Matern 3/2 term 0.41 (tools/prof_sgp_torch.py --grad-faults)
+SGP_LKH_RTOL, SGP_OPT_RTOL, SGP_GRAD_RTOL = 1e-3, 1e-3, 3e-6
+# the sparse mixture (c) on the first 20 000 points, its gpqa report (d),
+# and train_moe's sparse experts on moe_data (e), whose holdout Q2 must
+# reach this (its experts take no warm start, egobox_tpu's recipe, and
+# settle with a noise of ~0.2 var(y): Q2 0.7187 on the H100)
+SGP_MIX_N, SGP_MIX_NZ, MOE_SGP_NZ, MOE_SGP_Q2_MIN = 20_000, 256, 128, 0.5
 
 
 def device_phase():
@@ -1179,7 +1218,318 @@ def egor_moe_phase(torch, egx):
     return out
 
 
-PHASES = ("kernels", "slice", "egor", "moe")
+def sgp_data(seed=1):
+    """bench.py:128-165's data with numpy from ``seed``: Griewank on +-600,
+    d=10, x divided by 600 (the sparse GP does not normalize x); the
+    50 000 training outputs plus 5 % of std(y) Gaussian noise, as float32
+    numpy (the entry point takes it with no device); 2 000 clean holdout
+    points in float64."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-600.0, 600.0, (SGP_N + SGP_HOLD, DIM))
+    y = griewank(x)
+    x = x / 600.0
+    yn = y + 0.05 * np.std(y) * rng.standard_normal(y.shape)
+    return (x[:SGP_N].astype(np.float32), yn[:SGP_N].astype(np.float32),
+            x[SGP_N:], y[SGP_N:])
+
+
+def sgp_fit_variant(torch, ck, corr, data):
+    """One ``fit_sgp`` of the recipe (FITC) with numpy float32 in and no
+    device (the card; float64 algebra, float32 points and Grams, K1's for
+    the large Matern / absexp ones), counted from zero K1 launches through
+    predict and variance on the holdout: fit and warm-start seconds, lanes
+    x iterations, the holdout Q2 (gate ``SGP_Q2_MIN``), and the fit's
+    likelihood against a float64 recomputation of the same model on the
+    card (float64 Grams; the fit's nugget, relative to sigma2 for float32
+    points, as an absolute one)."""
+    from egobox_torch.gp import sgp
+
+    x, y, xh, yh = data
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = sgp.fit_sgp(x, y, corr=corr, info=info, **SGP_FIT_KW)
+    lkh = float(model.likelihood)  # host sync
+    fit_s = time.perf_counter() - t0
+    if not (model.theta.device.type == DEV
+            and model.theta.dtype == torch.float64
+            and model.z.dtype == torch.float32):
+        raise RuntimeError(f"sgp {corr}: numpy float32 input with no device "
+                           f"ran on {model.theta.device} with theta "
+                           f"{model.theta.dtype}, points {model.z.dtype}")
+    xh_t = torch.tensor(xh, device=DEV)
+    mean, var = sgp.sgp_predict_valvar(model, xh_t)
+    torch.cuda.synchronize()
+    launches = ck.launches
+    shapes = dict(ck.launch_shapes)
+    var_ok = bool(torch.all(torch.isfinite(var)) & torch.all(var >= 0))
+    q2 = _q2(mean.double().cpu().numpy(), yh)
+
+    x64 = torch.tensor(x, dtype=torch.float64, device=DEV)
+    y64 = torch.tensor(y, dtype=torch.float64, device=DEV)[:, None]
+    nugget = sgp._default_nugget(torch.float32) * float(model.sigma2)
+    with torch.no_grad():
+        lkh64, _ = sgp.fitc_likelihood(corr, model.theta, model.sigma2,
+                                       model.noise, x64, y64,
+                                       model.z.double(), None, nugget)
+    rel = abs(lkh - float(lkh64)) / abs(float(lkh64))
+    iters = info["iterations"]
+    print(f"sgp {corr} FITC n={SGP_N} M={SGP_M}: fit {fit_s!r} s (dense "
+          f"warm start {info['warm_start_s']!r} s), {info['lanes']} lanes x "
+          f"{iters} iterations, {info['evaluations']} likelihood "
+          f"evaluations; theta {model.theta.tolist()}, sigma2 "
+          f"{float(model.sigma2)!r}, noise {float(model.noise)!r}; "
+          f"likelihood {lkh!r} vs float64 Grams {float(lkh64)!r} (rel "
+          f"{rel!r}, tolerance {SGP_LKH_RTOL}); holdout Q2 {q2!r}; K1 "
+          f"launches {launches} by shape "
+          f"{ {f'{a}x{b}': c for (a, b), c in sorted(shapes.items())} }",
+          flush=True)
+    if not var_ok:
+        raise RuntimeError(f"sgp {corr}: variance not finite or negative")
+    if not rel <= SGP_LKH_RTOL:
+        raise RuntimeError(f"sgp {corr}: likelihood {lkh} vs float64 "
+                           f"Grams {float(lkh64)}")
+    if not q2 >= SGP_Q2_MIN:
+        raise RuntimeError(f"sgp {corr}: holdout Q2 {q2} < {SGP_Q2_MIN}")
+    return dict(model=model, info=info, fit_s=fit_s, q2=q2,
+                likelihood_rel=rel, launches=launches, shapes=shapes,
+                x=x64, y=y64, xh=xh_t)
+
+
+def sgp_float64_check(torch, run, data):
+    """(b) against the same fit of the same values as float64 (float64
+    points: every Gram in float64, no K1, the nugget absolute): both
+    optima in the float64 fit's own model (float64 Grams, absolute nugget
+    1000 eps64), the float32 fit's at most ``SGP_OPT_RTOL`` below, and
+    both holdout Q2."""
+    from egobox_torch.gp import sgp
+
+    x, y, xh, yh = data
+    model, corr = run["model"], run["model"].corr
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m64 = sgp.fit_sgp(x.astype(np.float64), y.astype(np.float64), corr=corr,
+                      **SGP_FIT_KW)
+    l64 = float(m64.likelihood)
+    fit_s = time.perf_counter() - t0
+    q2_64 = _q2(sgp.sgp_predict(m64, run["xh"]).double().cpu().numpy(), yh)
+    with torch.no_grad():
+        l32, _ = sgp.fitc_likelihood(
+            corr, model.theta, model.sigma2, model.noise, run["x"],
+            run["y"], model.z.double(), None,
+            1000.0 * torch.finfo(torch.float64).eps)
+    gap = (l64 - float(l32)) / abs(l64)
+    print(f"sgp {corr}: float64 data fit {fit_s!r} s, theta "
+          f"{m64.theta.tolist()}, likelihood {l64!r}, holdout Q2 {q2_64!r}; "
+          f"the float32 fit's optimum in that model {float(l32)!r} (below "
+          f"by {gap!r}, tolerance {SGP_OPT_RTOL}), Q2 {run['q2']!r}",
+          flush=True)
+    if not gap <= SGP_OPT_RTOL:
+        raise RuntimeError(f"sgp {corr}: the float32 fit's optimum "
+                           f"{float(l32)} against float64's {l64}")
+    return dict(fit_s=fit_s, likelihood=l64, likelihood_float32_fit=float(l32),
+                gap=gap, q2=q2_64)
+
+
+def sgp_k1_checks(torch, ck, run):
+    """(b)'s K1 work: every 512 x 50 000 Gram of the fit was a K1 launch
+    (one per likelihood evaluation, plus the final likelihood); K1 at every
+    shape it ran at (those and the holdout's 2 000 x 512 and 512 x 2 000)
+    against the plain version on the same inputs; the theta gradient of
+    the fit's own Gram (``sgp._k``: theta cast to float32, ``corr_cross``,
+    K1Gram) at the fitted theta against a float64 autograd of the plain
+    formula; the times of K1 at 512 x 50 000 and 2 000 x 512 beside their
+    bounds and of the backward's plain contraction per evaluation."""
+    from egobox_torch.gp import kernels as tk
+    from egobox_torch.gp import sgp
+
+    model, corr = run["model"], run["model"].corr
+    # the fit's float32 points, the holdout as its predict casts it
+    x, xh, z = run["x"].float(), run["xh"].float(), model.z
+    th = model.theta.detach().float()
+    fit_grams = run["shapes"].get((SGP_M, SGP_N), 0)
+    if fit_grams != run["info"]["evaluations"] + 1:
+        raise RuntimeError(f"sgp {corr}: {fit_grams} K1 launches at "
+                           f"{(SGP_M, SGP_N)} for "
+                           f"{run['info']['evaluations']} evaluations + 1")
+    inputs = {(SGP_M, SGP_N): (z, x), (SGP_HOLD, SGP_M): (xh, z),
+              (SGP_M, SGP_HOLD): (z, xh)}
+    worst = 0.0
+    for shape in run["shapes"]:
+        if shape not in inputs:
+            raise RuntimeError(f"sgp {corr}: K1 ran at {shape}, not a shape "
+                               "of the fit or of its predictions")
+        x1, x2 = inputs[shape]
+        worst = max(worst, _k1_check(
+            torch, f"sgp shape {shape[0]}x{shape[1]}",
+            ck.corr_cross_tile(corr, x1, x2, th),
+            ck.corr_cross_plain(corr, x1, x2, th)))
+
+    g = torch.randn((SGP_M, SGP_N), device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(0))
+    one = torch.ones((), dtype=torch.float64, device=DEV)
+    th_fit = th.double().requires_grad_(True)
+    before = ck.launches
+    r_fit = sgp._k(corr, z, x, None, th_fit, one)  # the fit's Gram
+    if ck.launches != before + 1 or r_fit.dtype != torch.float64:
+        raise RuntimeError(f"sgp {corr}: the fit's Gram took no K1 launch")
+    (g32,) = torch.autograd.grad((g.double() * r_fit).sum(), th_fit)
+    th64 = th.double().requires_grad_(True)
+    r64 = torch.exp(tk.log_corr_cross(corr, z.double(), x.double(), th64))
+    (g64,) = torch.autograd.grad((g.double() * r64).sum(), th64)
+    del r64, r_fit
+    grad_rel = float(torch.max(torch.abs(g32 - g64))
+                     / torch.max(torch.abs(g64)))
+
+    def k1_bound(n1, n2):
+        # matern52: 8 operations per term (log1p counted as one), one exp
+        # per output; each input read once, the output written once
+        return bound(4 * ((n1 + n2) * DIM + DIM + n1 * n2),
+                     n1 * n2 * (8 * DIM + 1))
+
+    fit_ms = time_ms(torch, lambda: ck.corr_cross_tile(corr, z, x, th))
+    fit_plain_ms = time_ms(torch, lambda: ck.corr_cross_plain(corr, z, x,
+                                                              th), reps=3,
+                           batch=2)
+    pred_ms = time_ms(torch, lambda: ck.corr_cross_tile(corr, xh, z, th))
+    c = g * ck.corr_cross_tile(corr, z, x, th)
+    bwd_ms = time_ms(torch, lambda: tk._l1_dphi(corr, c, z, x, th, None),
+                     reps=3, batch=2)
+    fit_bound_ms, fit_bound_by = k1_bound(SGP_M, SGP_N)
+    pred_bound_ms, pred_bound_by = k1_bound(SGP_HOLD, SGP_M)
+    print(f"sgp {corr}: K1 ran at every {SGP_M}x{SGP_N} Gram of the fit "
+          f"({fit_grams} = {run['info']['evaluations']} evaluations + the "
+          f"final likelihood); at its {len(run['shapes'])} shapes against "
+          f"the plain version max abs err {worst!r} (atol {K1_ATOL}); "
+          f"the fit's Gram's theta gradient (K1Gram) vs float64 autograd of "
+          f"the plain formula: rel {grad_rel!r} (tolerance {SGP_GRAD_RTOL}; "
+          f"{g32.tolist()}); K1 {SGP_M}x{SGP_N} {fit_ms!r} ms (plain "
+          f"{fit_plain_ms!r} ms, bound {fit_bound_ms!r} ms by "
+          f"{fit_bound_by}); {SGP_HOLD}x{SGP_M} {pred_ms!r} ms (bound "
+          f"{pred_bound_ms!r} ms by {pred_bound_by}); the backward's plain "
+          f"contraction {bwd_ms!r} ms per evaluation", flush=True)
+    if not grad_rel <= SGP_GRAD_RTOL:
+        raise RuntimeError(f"sgp {corr}: K1Gram theta gradient rel "
+                           f"{grad_rel} > {SGP_GRAD_RTOL}")
+    return dict(max_abs_err=worst, grad_rel=grad_rel,
+                ms_512x50000=fit_ms, plain_ms_512x50000=fit_plain_ms,
+                bound_ms_512x50000=fit_bound_ms,
+                ms_2000x512=pred_ms, bound_ms_2000x512=pred_bound_ms,
+                backward_ms_512x50000=bwd_ms)
+
+
+def sgp_mix_phase(torch, egx, ck, data):
+    """(c) ``SparseGpMix(MATERN52, nz=256, VFE, subsample_warmstart=2000)``
+    on the first 20 000 points (the API takes its data as float64, as
+    egobox_tpu's does: float64 Grams, no K1), saved to JSON, loaded, and
+    predicting the holdout again to the bit; (d) gpqa's assessment of that
+    file with 5 folds (``gpqa.assess``, in-process), its table printed and
+    finite. Its CV refits follow egobox_tpu's recipe (5 LHS starts, 25
+    iterations, no warm start), which underfits this data (CV Q2 0.35-0.36
+    with float32 or float64 points, tools/prof_sgp_torch.py --cv; the
+    port's hook holds egobox_tpu's fold predictions,
+    tests/test_torch_api.py): no Q2 gate."""
+    from egobox_torch import gpqa
+
+    x, y, xh, yh = data
+    n = SGP_MIX_N
+    ck.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sgpx = egx.SparseGpMix(corr_spec=egx.CorrelationSpec.MATERN52,
+                           nz=SGP_MIX_NZ, method=egx.SparseMethod.VFE,
+                           seed=0, subsample_warmstart=2000).fit(x[:n], y[:n])
+    fit_s = time.perf_counter() - t0
+    launches = ck.launches
+    path = ROOT / "build" / "sgp_mix_vfe.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if not sgpx.save(str(path)):
+        raise RuntimeError(f"sgp mix: save to {path} failed")
+    loaded = egx.SparseGpx.load(str(path))
+    p1, p2 = sgpx.predict(xh), loaded.predict(xh)
+    same = bool(np.array_equal(p1, p2))
+    q2 = _q2(p1, yh)
+    print(f"sgp mix: SparseGpMix matern52 VFE nz={SGP_MIX_NZ} on {n} points "
+          f"{fit_s!r} s ({launches} K1 launches), {sgpx}; holdout Q2 "
+          f"{q2!r}; saved {path.stat().st_size} bytes of JSON, reloaded "
+          f"predictions identical to the bit: {same}", flush=True)
+    if not same:
+        raise RuntimeError("sgp mix: the reloaded model predicts "
+                           f"differently (max {np.max(np.abs(p1 - p2))})")
+    t0 = time.perf_counter()
+    r = gpqa.assess(str(path), kfold=5)
+    gpqa_s = time.perf_counter() - t0
+    print(f"sgp gpqa ({gpqa_s!r} s): {r['file']} {r['kind']} n={r['n']} "
+          f"Q2 {r['q2']!r} PVA {r['pva']!r} IAE_a {r['iae_alpha']!r}",
+          flush=True)
+    gpqa.print_coverage_table(r["alphas"], r["coverage"])
+    if not all(np.isfinite([r["q2"], r["pva"], r["iae_alpha"]])):
+        raise RuntimeError(f"sgp gpqa: metrics not finite: {r}")
+    return dict(fit_s=fit_s, q2=q2, k1_launches=launches, gpqa_s=gpqa_s,
+                cv_q2=r["q2"], cv_pva=r["pva"], cv_iae_alpha=r["iae_alpha"])
+
+
+def moe_sgp_phase(torch, egx):
+    """(e) ``train_moe(gp_type="sparse", n_clusters=2, n_inducing=128,
+    sparse_method="VFE")`` on moe_data (4 000 points, numpy float32, no
+    device), x divided by 600 as for the sparse fit above (the sparse GP
+    does not normalize x, and its theta box cannot reach the length scales
+    of +-600): every expert an ``SgpModel``, a non-negative variance, the
+    holdout Q2 (gate ``MOE_SGP_Q2_MIN``)."""
+    from egobox_torch.gp.sgp import SgpModel
+
+    x, y, xh, yh = moe_data()
+    x, xh = x / np.float32(600.0), xh / 600.0
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mix = egx.moe.train_moe(x, y, gp_type="sparse", n_clusters=2,
+                            n_inducing=MOE_SGP_NZ, sparse_method="VFE",
+                            times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kinds = [type(e).__name__ for e in mix.experts]
+    q2 = _q2(mix.predict(xh).double().cpu().numpy(), yh)
+    var = mix.predict_var(xh)
+    print(f"moe-sgp: train_moe sparse VFE nz={MOE_SGP_NZ} {wall!r} s, by "
+          f"step {times!r}; experts {kinds}, noise "
+          f"{[float(e.noise) for e in mix.experts]}; holdout Q2 {q2!r} "
+          f"(gate {MOE_SGP_Q2_MIN})", flush=True)
+    if not all(isinstance(e, SgpModel) for e in mix.experts):
+        raise RuntimeError(f"moe-sgp: experts {kinds}")
+    if not bool(torch.all(torch.isfinite(var)) & torch.all(var >= 0)):
+        raise RuntimeError("moe-sgp: predict_var not finite or negative")
+    if not q2 >= MOE_SGP_Q2_MIN:
+        raise RuntimeError(f"moe-sgp: holdout Q2 {q2} < {MOE_SGP_Q2_MIN}")
+    return dict(wall_s=wall, step_s=times, q2=q2)
+
+
+def sgp_phase(torch, egx, ck):
+    """sgp-fit-n50k-m512-d10: (a) the recipe with the squared exponential
+    (the reference's cell; its Gram is a GEMM, no K1), (b) with Matern 5/2,
+    where K1 builds every 512 x 50 000 Gram of the fit through K1Gram and
+    the holdout's 2 000 x 512 Grams, counted from zero around its fit and
+    predict, and (b)'s optimum against the same fit of float64 data; then
+    (c)-(e)."""
+    data = sgp_data()
+    out = {"sqexp": sgp_fit_variant(torch, ck, "squared_exponential",
+                                    data)}
+    out["matern52"] = run = sgp_fit_variant(torch, ck, "matern52", data)
+    out["k1"] = sgp_k1_checks(torch, ck, run)
+    out["matern52_float64"] = sgp_float64_check(torch, run, data)
+    for r in (out["sqexp"], run):
+        for k in ("model", "x", "y", "xh"):
+            r.pop(k)
+        r["shapes"] = {f"{a}x{b}": c for (a, b), c in sorted(
+            r["shapes"].items())}
+    out["mix"] = sgp_mix_phase(torch, egx, ck, data)
+    out["moe"] = moe_sgp_phase(torch, egx)
+    return out
+
+
+PHASES = ("kernels", "slice", "egor", "moe", "sgp")
 
 
 def main():
@@ -1229,6 +1579,9 @@ def main():
         egor["moe2"] = egor_moe_phase(torch, egx)
         print(json.dumps({"moe_fit": moe_fit}), flush=True)
     print(json.dumps({"egor": egor}), flush=True)
+    if "sgp" in phases:
+        sgp = sgp_phase(torch, egx, ck)
+        print(json.dumps({"sgp": sgp}), flush=True)
     if phases != PHASES:
         return
 
@@ -1245,7 +1598,10 @@ def main():
              launches_egor_d10_fused_replayed=d10["k1_replayed"],
              launches_egor_d10_by_shape=d10["k1_by_shape"],
              launches_moe_fit=moe_fit["k1_launches"],
-             launches_moe_fit_by_shape=moe_fit["k1_by_shape"], **k1),
+             launches_moe_fit_by_shape=moe_fit["k1_by_shape"],
+             launches_sgp_fit=sgp["matern52"]["launches"],
+             launches_sgp_fit_by_shape=sgp["matern52"]["shapes"],
+             sgp=sgp["k1"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",

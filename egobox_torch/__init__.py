@@ -1,5 +1,8 @@
-"""PyTorch / CUDA port of egobox_tpu: dense kriging, the mixture of GP
-experts and the Egor optimizer.
+"""PyTorch / CUDA port of egobox_tpu: dense kriging, the sparse GP (FITC /
+VFE), the mixture of GP experts (dense or sparse experts), the Egor
+optimizer, the user-facing ``Gpx`` / ``SparseGpx`` API with its sampling
+functions, and the ``gpqa`` quality report (``python -m
+egobox_torch.gpqa``).
 
 The port mirrors egobox_tpu's module layout and function names; egobox_tpu
 stays the reference it is tested against. This package imports neither jax
@@ -28,6 +31,7 @@ from .types import (
     XType,
 )
 from . import doe, ego, gp, moe, optim
+from .api import GpMix, Gpx, SparseGpMix, SparseGpx, lhs, sampling
 from .ego import Egor, EgorBatch, GpConfig
 
 __all__ = [
@@ -38,6 +42,8 @@ __all__ = [
     "ExpectedOptimum",
     "GpConfig",
     "GpFileFormat",
+    "GpMix",
+    "Gpx",
     "HotStartMode",
     "InfillOptimizer",
     "InfillStrategy",
@@ -47,6 +53,8 @@ __all__ = [
     "RegressionSpec",
     "RunInfo",
     "Sampling",
+    "SparseGpMix",
+    "SparseGpx",
     "SparseMethod",
     "XSpec",
     "XType",
@@ -55,6 +63,8 @@ __all__ = [
     "doe",
     "ego",
     "gp",
+    "lhs",
     "moe",
     "optim",
+    "sampling",
 ]

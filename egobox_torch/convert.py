@@ -1,8 +1,9 @@
 """Carry weights and state over from a model fitted or a run started
 elsewhere: the port's ``GpModel`` (one model, or the surrogate container
 with a leading output axis) from the arrays of e.g. an egobox_tpu
-``GpModel`` converted field by field with ``np.asarray``, a
-``GaussianMixture`` and a ``GpMixture`` from those of egobox_tpu's, and
+``GpModel`` converted field by field with ``np.asarray``, an ``SgpModel``
+from those of egobox_tpu's sparse GP, a ``GaussianMixture`` and a
+``GpMixture`` (dense or sparse experts) from those of egobox_tpu's, and
 ``EgorState`` from the hot-start checkpoint payload (clusterings
 included)."""
 
@@ -16,11 +17,38 @@ import torch
 from .config import default_dtype, resolve_device
 from .ego.state import EgorState
 from .gp.gp import GpModel
+from .gp.sgp import SgpModel
 from .moe.gaussian_mixture import GaussianMixture
 from .moe.moe import GpMixture
 from .types import Recombination
 
-_STATIC = ("corr", "trend")
+_STATIC = ("corr", "trend", "method")
+
+
+def _tensors_from_numpy(cls, fields: dict, device, dtype, where: str):
+    """Every array field of the dataclass ``cls`` from ``fields`` (numpy
+    arrays; ``w_star`` may be None or ``np.asarray(None)``): floating
+    fields on ``device`` in ``dtype``, ``mask`` boolean."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    names = [f.name for f in dataclasses.fields(cls)
+             if f.name not in _STATIC]
+    missing = [k for k in names if k not in fields]
+    if missing:
+        raise ValueError(f"{where}: missing fields {missing}")
+    out = {}
+    for k in names:
+        v = fields[k]
+        if v is None or (isinstance(v, np.ndarray) and v.dtype == object
+                         and v.shape == () and v.item() is None):
+            if k != "w_star":
+                raise ValueError(f"{where}: {k} is None")
+            out[k] = None
+            continue
+        t_dtype = torch.bool if k == "mask" else dtype
+        out[k] = torch.from_numpy(np.array(v)).to(device=device,
+                                                  dtype=t_dtype)
+    return out
 
 
 def gp_model_from_numpy(fields: dict, corr: str, trend: str, device=None,
@@ -30,26 +58,22 @@ def gp_model_from_numpy(fields: dict, corr: str, trend: str, device=None,
     ``device`` (default: the GPU; ``"cpu"`` to serve on the CPU) in
     ``dtype`` (default: the device's default type); ``mask`` stays
     boolean."""
-    device = resolve_device(device)
-    dtype = dtype or default_dtype(device)
-    names = [f.name for f in dataclasses.fields(GpModel)
-             if f.name not in _STATIC]
-    missing = [k for k in names if k not in fields]
-    if missing:
-        raise ValueError(f"gp_model_from_numpy: missing fields {missing}")
-    out = {}
-    for k in names:
-        v = fields[k]
-        if v is None or (isinstance(v, np.ndarray) and v.dtype == object
-                         and v.shape == () and v.item() is None):
-            if k != "w_star":
-                raise ValueError(f"gp_model_from_numpy: {k} is None")
-            out[k] = None
-            continue
-        t_dtype = torch.bool if k == "mask" else dtype
-        out[k] = torch.from_numpy(np.array(v)).to(device=device,
-                                                  dtype=t_dtype)
-    return GpModel(**out, corr=corr, trend=trend)
+    return GpModel(**_tensors_from_numpy(GpModel, fields, device, dtype,
+                                         "gp_model_from_numpy"),
+                   corr=corr, trend=trend)
+
+
+def sgp_model_from_numpy(fields: dict, corr: str, method: str, device=None,
+                         dtype=None) -> SgpModel:
+    """``SgpModel`` from the arrays of every field of egobox_tpu's
+    (``theta``, ``sigma2``, ``noise``, ``w_star`` (None allowed), ``z``,
+    ``w_vec``, ``w_inv``, ``likelihood``), its kernel and its method
+    ("FITC" or "VFE"), on ``device`` (default: the GPU) in ``dtype``
+    (default: float64, the type the sparse GP computes in)."""
+    return SgpModel(**_tensors_from_numpy(SgpModel, fields, device,
+                                          dtype or torch.float64,
+                                          "sgp_model_from_numpy"),
+                    corr=corr, method=method)
 
 
 def gp_surrogates_from_numpy(fields: dict, corr: str, trend: str,
@@ -95,12 +119,17 @@ def gmx_from_numpy(fields: dict, device=None, dtype=None) -> GaussianMixture:
 def gp_mixture_from_numpy(experts: list, gmx_fields: dict,
                           recombination=Recombination.SMOOTH, device=None,
                           dtype=None) -> GpMixture:
-    """``GpMixture`` from egobox_tpu's: ``experts`` is one (fields, corr,
-    trend) triple per expert, as ``gp_model_from_numpy`` takes them, and
-    ``gmx_fields`` the mixture's arrays (``gmx_from_numpy``)."""
+    """``GpMixture`` from egobox_tpu's: ``experts`` is one triple per
+    expert, (fields, corr, trend) for a dense one as ``gp_model_from_numpy``
+    takes them, (fields, corr, method) for a sparse one (its fields hold
+    ``w_vec``) as ``sgp_model_from_numpy`` takes them; ``gmx_fields`` the
+    mixture's arrays (``gmx_from_numpy``). A mixture with a sparse expert
+    is float64 unless ``dtype`` says otherwise."""
+    if dtype is None and any("w_vec" in f for f, _, _ in experts):
+        dtype = torch.float64
     return GpMixture(
-        [gp_model_from_numpy(f, corr, trend, device, dtype)
-         for f, corr, trend in experts],
+        [(sgp_model_from_numpy if "w_vec" in f else gp_model_from_numpy)(
+            f, corr, kind, device, dtype) for f, corr, kind in experts],
         gmx_from_numpy(gmx_fields, device, dtype),
         Recombination(recombination))
 

@@ -46,6 +46,9 @@ _SQRT5 = corr_kernel._SQRT5
 #: element budget of one (rows, n2, nx[, ncomp]) broadcast block; larger
 #: problems stream row blocks, and float32 CUDA Grams above it take K1
 _DENSE_BUDGET = 8_000_000
+#: element budget of one block of the L1-family Gram and adjoint of a theta
+#: stack: (thetas, n, n, nx) forward, (thetas, rows, n, nx) in the adjoint
+_STACK_BUDGET = 32_000_000
 
 
 def _theta_w(name: str, theta, weights):
@@ -124,34 +127,116 @@ def log_corr_cross(name: str, x1, x2, theta, weights=None):
 
 def _takes_k1(name: str, x1, x2, theta, weights) -> bool:
     """The K1 dispatch rule: large float32 L1-family Grams on CUDA with
-    identity weights that autograd does not record. K1 has no backward, so
-    a Gram whose inputs require grad (an infill criterion differentiated
-    with respect to its trial points) takes the differentiable plain
-    formula. The likelihood never differentiates a Gram (it has its
-    analytic adjoint), so every Gram of a fit still launches K1."""
+    identity weights whose points autograd does not record. A Gram whose
+    ``x1`` or ``x2`` requires grad (an infill criterion or a prediction
+    differentiated with respect to its trial points) takes the
+    differentiable plain formula; a Gram whose ``theta`` requires grad
+    launches K1 through ``K1Gram``, whose backward gives the gradient with
+    respect to theta."""
     return (
         name != "squared_exponential"
         and weights is None
         and x1.dtype == torch.float32
         and x1.shape[0] * x2.shape[0] * x1.shape[1] > _DENSE_BUDGET
         and x1.is_cuda
-        and not corr_kernel.needs_grad(x1, x2, theta)
+        and not corr_kernel.needs_grad(x1, x2)
     )
+
+
+def _dlog_term(name: str, u: torch.Tensor) -> torch.Tensor:
+    """d/du of the per-dim log-kernel term of the L1 family."""
+    if name == "absolute_exponential":
+        return torch.full_like(u, -1.0)
+    if name == "matern32":
+        return -3.0 * u / (1.0 + _SQRT3 * u)
+    if name == "matern52":
+        a = 1.0 + _SQRT5 * u
+        return -(5.0 / 3.0) * u * a / (a + (5.0 / 3.0) * u * u)
+    raise ValueError(f"unknown kernel: {name}")
+
+
+def _l1_dphi(name, c, x1, x2, theta, w_star):
+    """sum_ij C_ij d log r(x1_i, x2_j) / d theta for absexp / Matern, in
+    closed form per row block of x1: no (n1, n2, nx) tensor is ever held.
+    ``c`` (..., n1, n2) and ``theta`` (..., dim) share their leading axis,
+    and so do ``x1`` / ``x2`` when they are (..., n, nx) (one design per
+    theta, identity weights). The likelihood's adjoint passes one design as
+    both; ``K1Gram``'s backward a cross pair.
+
+    With u_jl = |d_j| theta_l |w_jl| (u_j = |d_j| theta_j without KPLS),
+    d log r / d theta_l = sum_j term'(u_jl) |d_j| |w_jl|."""
+    n1 = x1.shape[-2]
+    n2, nx = x2.shape[-2:]
+    per_pair = nx * (1 if w_star is None else w_star.shape[1])
+    if theta.ndim == 1:
+        rows = max(1, _DENSE_BUDGET // max(1, n2 * per_pair))
+    else:
+        rows = max(1, _STACK_BUDGET // max(1, theta.shape[0] * n2 * per_pair))
+    if w_star is None:
+        thw = theta[..., None, None, :]  # over (rows, n2, nx)
+    else:
+        # over (rows, n2, nx, ncomp)
+        thw = (theta[..., None, :] * torch.abs(w_star))[..., None, None, :, :]
+    out = torch.zeros_like(theta)
+    for s in range(0, n1, rows):
+        dabs = torch.abs(x1[..., s:s + rows, None, :]
+                         - x2[..., None, :, :])
+        cb = c[..., s:s + rows, :]
+        if w_star is None:
+            t = _dlog_term(name, dabs * thw) * dabs
+            out = out + torch.einsum("...ij,...ijk->...k", cb, t)
+        else:
+            dabs = dabs[..., None]
+            t = _dlog_term(name, dabs * thw) * dabs
+            out = out + torch.einsum("...ij,...ijkl,kl->...l", cb, t,
+                                     torch.abs(w_star))
+    return out
+
+
+class K1Gram(torch.autograd.Function):
+    """r(x1, x2) built by K1, differentiable with respect to theta.
+
+    The forward is ``corr_cross_tile`` (the kernel on CUDA tensors, its
+    plain version on CPU ones); the backward is the closed-form contraction
+    dL/dtheta = sum_ij G_ij r_ij d log r_ij / d theta of ``_l1_dphi``, in
+    plain torch over row blocks, as egobox_tpu differentiates its own plain
+    formula there. The sparse GP's likelihood differentiates through its
+    (M, n) cross Gram by autograd (its Cholesky is only M x M), so the
+    Gram needs this backward. The dense likelihood never differentiates a
+    Gram: its analytic adjoint (gp/likelihood.py ``_NegRlf``) contracts
+    the kept factorization with the same per-dimension terms, which would
+    cost an n x n Cholesky's backward by autograd. The two share
+    ``_l1_dphi``. ``x1`` and ``x2`` must not require grad."""
+
+    @staticmethod
+    def forward(ctx, name, x1, x2, theta):
+        r = corr_kernel.corr_cross_tile(name, x1, x2, theta)
+        ctx.name = name
+        ctx.save_for_backward(x1, x2, theta, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, theta, r = ctx.saved_tensors
+        return None, None, None, _l1_dphi(ctx.name, g * r, x1, x2, theta,
+                                          None)
 
 
 def corr_cross(name: str, x1, x2, theta, weights=None):
     """Cross-correlation (Gram) matrix r(x1, x2) of shape (n1, n2).
 
     sqexp takes the matmul path; large float32 L1-family Grams on CUDA
-    launch K1 unless an input requires grad; the rest streams row blocks
-    through the (differentiable) log-space formula.
+    launch K1 (through ``K1Gram`` when theta requires grad) unless x1 or
+    x2 requires grad; the rest streams row blocks through the
+    (differentiable) log-space formula.
     """
     if name == "squared_exponential":
         return _sqexp_cross_fast(x1, x2, theta, weights)
     if _takes_k1(name, x1, x2, theta, weights):
-        return corr_kernel.corr_cross_tile(
-            name, x1.contiguous(), x2.contiguous(), theta.contiguous()
-        )
+        x1, x2, theta = x1.contiguous(), x2.contiguous(), theta.contiguous()
+        if corr_kernel.needs_grad(theta):
+            return K1Gram.apply(name, x1, x2, theta)
+        return corr_kernel.corr_cross_tile(name, x1, x2, theta)
     return torch.exp(log_corr_cross(name, x1, x2, theta, weights))
 
 
@@ -160,7 +245,8 @@ def corr_gram_row_sums(name: str, x, theta, weights=None):
     ``sum_j |R[i, j]|``. Where K1 builds the Gram the sums come from the
     kernel, which saves two more passes over R; elsewhere they are summed
     from R."""
-    if _takes_k1(name, x, x, theta, weights):
+    if _takes_k1(name, x, x, theta, weights) and not corr_kernel.needs_grad(
+            theta):
         xc = x.contiguous()
         # K1's diagonal is exactly 1: every term of r(x_i, x_i) is 0
         return corr_kernel.corr_cross_tile(name, xc, xc, theta.contiguous(),

@@ -26,8 +26,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.chol_kernel import PRECISIONS, cholesky_nan, panel_cholesky
-from .kernels import (_SQRT3, _SQRT5, _DENSE_BUDGET, _log_corr_terms,
-                      _takes_k1, corr_cross, corr_gram_row_sums)
+from .kernels import (_STACK_BUDGET, _l1_dphi, _log_corr_terms, _takes_k1,
+                      corr_cross, corr_gram_row_sums)
 from .trends import trend_basis
 
 _LN10 = 2.302585092994046
@@ -83,11 +83,6 @@ class GpInnerParams(NamedTuple):
     r_chol: torch.Tensor  # (n, n) lower Cholesky of R
     ft: torch.Tensor  # (n, p) L^-1 F
     ft_qr_r: torch.Tensor  # (p, p) R factor of qr(ft)
-
-
-#: element budget of one block of the L1-family Gram and adjoint of a theta
-#: stack: (thetas, n, n, nx) forward, (thetas, rows, n, nx) in the adjoint
-_STACK_BUDGET = 32_000_000
 
 
 def _lead(v: torch.Tensor, lead) -> torch.Tensor:
@@ -269,53 +264,6 @@ def _sqexp_dphi(c, x_norm, theta, w_star):
     return -theta * (s @ (w_star**2))
 
 
-def _dlog_term(name: str, u: torch.Tensor) -> torch.Tensor:
-    """d/du of the per-dim log-kernel term of the L1 family."""
-    if name == "absolute_exponential":
-        return torch.full_like(u, -1.0)
-    if name == "matern32":
-        return -3.0 * u / (1.0 + _SQRT3 * u)
-    if name == "matern52":
-        a = 1.0 + _SQRT5 * u
-        return -(5.0 / 3.0) * u * a / (a + (5.0 / 3.0) * u * u)
-    raise ValueError(f"unknown kernel: {name}")
-
-
-def _l1_dphi(name, c, x_norm, theta, w_star):
-    """sum_ij C_ij d log r_ij / d theta for absexp / Matern, in closed form
-    per row block: no (n, n, nx) tensor is ever held. ``c`` (..., n, n) and
-    ``theta`` (..., dim) share their leading axis, and so does ``x_norm``
-    when it is (..., n, nx) (one design per theta, identity weights).
-
-    With u_jl = |d_j| theta_l |w_jl| (u_j = |d_j| theta_j without KPLS),
-    d log r / d theta_l = sum_j term'(u_jl) |d_j| |w_jl|."""
-    n, nx = x_norm.shape[-2:]
-    per_pair = nx * (1 if w_star is None else w_star.shape[1])
-    if theta.ndim == 1:
-        rows = max(1, _DENSE_BUDGET // max(1, n * per_pair))
-    else:
-        rows = max(1, _STACK_BUDGET // max(1, theta.shape[0] * n * per_pair))
-    if w_star is None:
-        thw = theta[..., None, None, :]  # over (rows, n, nx)
-    else:
-        # over (rows, n, nx, ncomp)
-        thw = (theta[..., None, :] * torch.abs(w_star))[..., None, None, :, :]
-    out = torch.zeros_like(theta)
-    for s in range(0, n, rows):
-        dabs = torch.abs(x_norm[..., s:s + rows, None, :]
-                         - x_norm[..., None, :, :])
-        cb = c[..., s:s + rows, :]
-        if w_star is None:
-            t = _dlog_term(name, dabs * thw) * dabs
-            out = out + torch.einsum("...ij,...ijk->...k", cb, t)
-        else:
-            dabs = dabs[..., None]
-            t = _dlog_term(name, dabs * thw) * dabs
-            out = out + torch.einsum("...ij,...ijkl,kl->...l", cb, t,
-                                     torch.abs(w_star))
-    return out
-
-
 def _rademacher_probes(n: int, probes: int, dtype, device) -> torch.Tensor:
     """The fixed (n, probes) Rademacher probes of the stochastic gradient,
     from a generator seeded with a constant: every gradient evaluation of a
@@ -399,7 +347,7 @@ def _grad_trace_core(corr, x_norm, w_star, nugget, mask, theta, l_chol,
         c.mul_(m[..., :, None] * m[..., None, :])
     if corr == "squared_exponential":
         return _sqexp_dphi(c, x_norm, theta, w_star)
-    return _l1_dphi(corr, c, x_norm, theta, w_star)
+    return _l1_dphi(corr, c, x_norm, x_norm, theta, w_star)
 
 
 class _NegRlf(torch.autograd.Function):

@@ -16,6 +16,7 @@ from .metrics import (
     iae_alpha_with_plot,
     pva_score,
     q2_score,
+    sgp_fit_predict,
 )
 from .moe import (
     GpMixture,
@@ -51,6 +52,7 @@ __all__ = [
     "predict_probas_derivatives",
     "pva_score",
     "q2_score",
+    "sgp_fit_predict",
     "train_moe",
     "train_moe_on_clusters",
 ]

@@ -3,8 +3,10 @@
 
 Cross-validated scores after crates/moe/src/metrics.rs (and
 gp/src/metrics.rs). The dense-GP hook ``gp_fit_predict`` fits the k folds
-as one lockstep stack of masked lanes (egobox_tpu: one vmapped program;
-the reference refits sequentially).
+as one lockstep stack of masked lanes, and the sparse-GP hook
+``sgp_fit_predict`` every fold's inits as one stack of lanes with a design
+per fold (egobox_tpu: one vmapped program each; the reference refits
+sequentially).
 
 - Q2        = 1 - PRESS / TSS (1 is perfect)
 - PVA       = |ln( mean (y - yhat)^2 / var_hat )| (0 is perfect)
@@ -28,7 +30,21 @@ from ..gp.fit import (
     output_model,
 )
 from ..gp.gp import predict_valvar
-from .moe import _placement, sparse_not_ported
+from ..gp.sgp import (
+    _LIKELIHOODS,
+    SGP_NOISE_BOUNDS_EPS_FACTOR,
+    SGP_NOISE_INIT,
+    SGP_NOISE_UPPER,
+    SGP_THETA_BOUNDS,
+    SgpModel,
+    _default_nugget,
+    _param_box,
+    _sgp_draws,
+    _solve_lanes,
+    _unpack,
+    sgp_predict_valvar,
+)
+from .moe import _placement
 
 
 def _norm_ppf(q) -> np.ndarray:
@@ -194,6 +210,70 @@ def gp_fit_predict(corr: str = "squared_exponential",
     return fp
 
 
-def sgp_fit_predict(*args, **kwargs) -> Callable:
-    """The sparse-GP hook of egobox_tpu: not ported."""
-    raise sparse_not_ported("sgp_fit_predict")
+def sgp_fit_predict(corr: str = "squared_exponential",
+                    method: str = "FITC", n_inducing: int = 10,
+                    n_start: int = 5, max_iters: int = 25, seed: int = 0,
+                    device=None, dtype=None) -> Callable:
+    """Batched fit_predict hook of a sparse GP: the k fold refits as one
+    stack of lockstep lanes (egobox_tpu vmaps them; the reference refits
+    sequentially, moe/src/metrics.rs). The sparse fit has no masked path,
+    so each fold's training rows are gathered into a (k, n_tr, d) stack
+    with n_tr the smallest fold's size (a fold loses at most one training
+    point), and each fold's data rides its lanes as a leading axis. The
+    inducing points of each fold are drawn from its training rows with
+    ``np.random.default_rng(seed)``, as egobox_tpu draws them; the LHS
+    seeds, one set per fold, from ``gp.sgp._sgp_draws(seed)``. As in
+    ``fit_sgp``, the algebra is float64 and the points take ``dtype``
+    (default float64; float32 points are float32 Grams, K1's on the card,
+    with the nugget relative to sigma2)."""
+
+    def hook(x, y, masks):
+        dev, dt = _placement(x, device, dtype or torch.float64)
+        xt = torch.as_tensor(np.atleast_2d(np.asarray(x, dtype=float)),
+                             dtype=dt).to(dev)
+        yt = torch.as_tensor(np.ravel(np.asarray(y, dtype=float)),
+                             dtype=torch.float64).to(dev)
+        masks = np.asarray(masks, dtype=bool)
+        k = masks.shape[0]
+        d = xt.shape[1]
+        n_tr = int(masks.sum(axis=1).min())
+        idx = torch.as_tensor(np.stack([np.nonzero(m)[0][:n_tr]
+                                        for m in masks])).to(dev)
+        xtr = xt[idx]  # (k, n_tr, d)
+        ytr = yt[idx][..., None]  # (k, n_tr, 1)
+        m = min(n_inducing, n_tr)
+        rng = np.random.default_rng(seed)
+        zidx = torch.as_tensor(np.stack([rng.permutation(n_tr)[:m]
+                                         for _ in range(k)])).to(dev)
+        z = xtr[torch.arange(k, device=dev)[:, None], zidx]  # (k, m, d)
+
+        def full(v):
+            return torch.full((d,), v, dtype=torch.float64, device=dev)
+
+        eps = torch.finfo(dt).eps
+        noise0 = torch.tensor(SGP_NOISE_INIT, dtype=torch.float64,
+                              device=dev)
+        nb = (SGP_NOISE_BOUNDS_EPS_FACTOR * eps, SGP_NOISE_UPPER)
+        seeds = (_sgp_draws(seed).fold_lhs_seeds(k, n_start, d + 2,
+                                                 torch.float64, dev)
+                 if n_start > 0 else [None] * k)
+        boxes = [_param_box(ytr[f], full(0.1), full(SGP_THETA_BOUNDS[0]),
+                            full(SGP_THETA_BOUNDS[1]), noise0, nb, True,
+                            None, seeds[f]) for f in range(k)]
+        inits, lo, up = (torch.stack(v) for v in zip(*boxes))
+        nugget = _default_nugget(dt)
+        lik = _LIKELIHOODS[method]
+        p = _solve_lanes(lik, corr, xtr, ytr, z, None, nugget, d, True,
+                         noise0, inits, lo, up, max_iters, 0)
+        theta, sigma2, noise = _unpack(p, d, True, noise0)
+        _, w = lik(corr, theta, sigma2, noise, xtr, ytr, z, None, nugget)
+        outs = [sgp_predict_valvar(SgpModel(
+            theta=theta[f], sigma2=sigma2[f], noise=noise[f], w_star=None,
+            z=z[f], w_vec=w.vec[f], w_inv=w.inv[f], likelihood=None,
+            corr=corr, method=method), xt) for f in range(k)]
+        preds = torch.stack([p for p, _ in outs]).double().cpu().numpy()
+        vrs = torch.stack([v for _, v in outs]).double().cpu().numpy()
+        return preds, vrs
+
+    hook.batched = True
+    return hook

@@ -13,10 +13,10 @@ After crates/moe/src/algorithm.rs:
   linspace(0.1, 2.1, 20) on a 1-in-5 holdout (algorithm.rs:349-378), then a
   retrain on all the data;
 - prediction: smooth sum_k p_k mu_k (variance with p_k^2 weights), hard the
-  expert of the argmax cluster (algorithm.rs:411-423, 662-685, 879-935).
-
-Dense experts only: sparse (``gp_type="sparse"``) experts need the sparse
-GP, which is not ported (ROADMAP Queue 1: gp.sgp).
+  expert of the argmax cluster (algorithm.rs:411-423, 662-685, 879-935);
+- experts are dense kriging (``GpModel``) or, with ``gp_type="sparse"``,
+  FITC / VFE sparse GPs (``SgpModel``, gp/sgp.py); every prediction path
+  dispatches on the expert's type (``_e_predict`` and its siblings).
 
 Data comes in as numpy (or tensors) and is kept on the host as float64 for
 the bookkeeping (folds, assignments, pads); the fits and predictions run on
@@ -48,13 +48,21 @@ from ..gp.fit import (
     output_model,
 )
 from ..gp.gp import (
-    GpModel,
     predict as gp_predict,
     predict_gradients as gp_predict_gradients,
     predict_valvar as gp_predict_valvar,
     predict_var as gp_predict_var,
     predict_var_gradients as gp_predict_var_gradients,
     sample as gp_sample,
+)
+from ..gp.sgp import (
+    SgpModel,
+    fit_sgp,
+    sgp_predict,
+    sgp_predict_gradients,
+    sgp_predict_valvar,
+    sgp_predict_var,
+    sgp_predict_var_gradients,
 )
 from ..types import Recombination
 from .gaussian_mixture import (
@@ -71,11 +79,32 @@ from .gmm import fit_gmm, gmm_log_prob
 FIT_FAILURES = (GpFitError, torch.linalg.LinAlgError)
 
 
-def sparse_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"egobox_torch: {what} needs the sparse GP, which is not ported "
-        "(ROADMAP Queue 1: gp.sgp)"
-    )
+def _e_predict(e, x):
+    return sgp_predict(e, x) if isinstance(e, SgpModel) else gp_predict(e, x)
+
+
+def _e_valvar(e, x):
+    if isinstance(e, SgpModel):
+        return sgp_predict_valvar(e, x)
+    return gp_predict_valvar(e, x)
+
+
+def _e_var(e, x):
+    if isinstance(e, SgpModel):
+        return sgp_predict_var(e, x)
+    return gp_predict_var(e, x)
+
+
+def _e_grad(e, x):
+    if isinstance(e, SgpModel):
+        return sgp_predict_gradients(e, x)
+    return gp_predict_gradients(e, x)
+
+
+def _e_vargrad(e, x):
+    if isinstance(e, SgpModel):
+        return sgp_predict_var_gradients(e, x)
+    return gp_predict_var_gradients(e, x)
 
 
 def _placement(x, device, dtype):
@@ -226,6 +255,39 @@ def _min_points(trend: str, dim: int) -> int:
     return 1
 
 
+def _sgp_cv_error(x: np.ndarray, y: np.ndarray, corr: str, n_inducing: int,
+                  sparse_method: str, n_start: int, seed: int,
+                  n_folds: int = 5, device=None, dtype=None) -> float:
+    """k-fold CV RMSE of a sparse-GP expert candidate, fold after fold (the
+    reference generates it by its declare_sgp_surrogate! macros). A fit
+    failing on the candidate's data (``FIT_FAILURES``) scores inf for its
+    fold; any other error propagates."""
+    n = x.shape[0]
+    n_folds = min(n_folds, max(n // 10, 2))
+    idx = np.arange(n)
+    rng = np.random.default_rng(seed)
+    rng.shuffle(idx)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    errs = []
+    for f in range(n_folds):
+        test = idx[f::n_folds]
+        train = np.setdiff1d(idx, test)
+        try:
+            m = fit_sgp(
+                t(x[train]), t(y[train]), corr=corr, method=sparse_method,
+                n_inducing=min(n_inducing, train.size),
+                n_start=min(n_start, 3), max_iters=20, seed=seed,
+            )
+            pred = sgp_predict(m, t(x[test])).double().cpu().numpy()
+            errs.append(np.mean((pred - y[test]) ** 2))
+        except FIT_FAILURES:
+            errs.append(np.inf)
+    return float(np.sqrt(np.mean(errs)))
+
+
 def find_best_expert(
     x,
     y,
@@ -237,20 +299,49 @@ def find_best_expert(
     theta_init=None,
     theta_bounds=None,
     gp_type: str = "full",
+    n_inducing: int = 10,
+    sparse_method: str = "FITC",
     device=None,
     dtype=None,
     times: Optional[dict] = None,
-) -> GpModel:
+):
     """CV-select the (trend, kernel) combo and fit it on all the data
-    (ref: find_best_expert, algorithm.rs:209-347). ``times`` (a dict)
-    collects the seconds of the CV ("cv") and of the fit ("fit")."""
+    (ref: find_best_expert, algorithm.rs:209-347). ``gp_type="sparse"``
+    selects sparse-GP experts with ``n_inducing`` points and
+    ``sparse_method`` (constant trend only, like the reference's
+    declare_sgp_surrogate registry, surrogates.rs:266-422): a CV over the
+    kernels, then ``fit_sgp``. ``times`` (a dict) collects the seconds of
+    the CV ("cv") and of the fit ("fit"). Sparse experts take float64
+    points unless ``dtype`` says otherwise; their algebra is float64
+    (gp/sgp.py)."""
     if gp_type == "sparse":
-        raise sparse_not_ported("find_best_expert(gp_type='sparse')")
+        dtype = dtype or torch.float64
     device, dtype = _placement(x, device, dtype)
     x, y = _host(x), _host(y).reshape(-1)
     n, nx = x.shape
     dim = kpls_dim if kpls_dim is not None else nx
     clock = _Clock(times, device)
+
+    if gp_type == "sparse":
+        if len(corr_names) == 1:
+            corr = corr_names[0]
+        else:
+            errors = {
+                c: _sgp_cv_error(x, y, c, n_inducing, sparse_method, n_start,
+                                 seed, device=device, dtype=dtype)
+                for c in corr_names
+            }
+            corr = min(errors, key=errors.get)
+        clock.mark("cv")
+        model = fit_sgp(
+            torch.as_tensor(x, dtype=dtype).to(device),
+            torch.as_tensor(y, dtype=dtype).to(device), corr=corr,
+            method=sparse_method, n_inducing=min(n_inducing, n),
+            kpls_dim=kpls_dim, n_start=n_start, seed=seed,
+            theta_init=theta_init, theta_bounds=theta_bounds,
+        )
+        clock.mark("fit")
+        return model
 
     allowed = [
         (t, c)
@@ -290,7 +381,7 @@ class MoeModel:
     mixture that weighs them, and the recombination (its capture signature
     on the card)."""
 
-    experts: tuple  # Tuple[GpModel, ...]
+    experts: tuple  # Tuple[GpModel | SgpModel, ...]
     gmx: GaussianMixture
     smooth: bool = True
 
@@ -299,7 +390,7 @@ def moe_predict_valvar_batch(model: MoeModel, x: torch.Tensor):
     """(means, variances) of one mixture over x (p, nx) -> ((p,), (p,)):
     smooth mean = sum p_k mu_k, variance = sum p_k^2 var_k
     (ref: algorithm.rs:662-685); hard: the argmax cluster's expert."""
-    mvs = [gp_predict_valvar(e, x) for e in model.experts]
+    mvs = [_e_valvar(e, x) for e in model.experts]
     means = torch.stack([m for m, _ in mvs])  # (k, p)
     vrs = torch.stack([v for _, v in mvs])
     if len(model.experts) == 1:
@@ -326,7 +417,7 @@ class GpMixture:
     Inputs are numpy or tensors; results are tensors on the experts'
     device."""
 
-    experts: List[GpModel]
+    experts: List  # GpModel or SgpModel
     gmx: GaussianMixture
     recombination: Recombination = Recombination.SMOOTH
 
@@ -339,7 +430,7 @@ class GpMixture:
         return len(self.experts)
 
     def _x(self, x) -> torch.Tensor:
-        ref = self.experts[0].x_norm
+        ref = self.experts[0].theta
         x = torch.as_tensor(x, dtype=ref.dtype).to(ref.device)
         return x.reshape(1, -1) if x.ndim < 2 else x
 
@@ -349,8 +440,8 @@ class GpMixture:
     def predict(self, x) -> torch.Tensor:
         x = self._x(x)
         if self.n_clusters == 1:
-            return gp_predict(self.experts[0], x)
-        means = torch.stack([gp_predict(e, x) for e in self.experts])
+            return _e_predict(self.experts[0], x)
+        means = torch.stack([_e_predict(e, x) for e in self.experts])
         if self._hard():
             # (ref: predict_hard, algorithm.rs:879-935)
             cl = predict_cluster(self.gmx, x)[None, :]
@@ -361,8 +452,8 @@ class GpMixture:
     def predict_var(self, x) -> torch.Tensor:
         x = self._x(x)
         if self.n_clusters == 1:
-            return gp_predict_var(self.experts[0], x)
-        vrs = torch.stack([gp_predict_valvar(e, x)[1] for e in self.experts])
+            return _e_var(self.experts[0], x)
+        vrs = torch.stack([_e_valvar(e, x)[1] for e in self.experts])
         if self._hard():
             return torch.gather(vrs, 0, predict_cluster(self.gmx, x)[None])[0]
         # squared responsibilities (ref: algorithm.rs:670-685)
@@ -374,8 +465,8 @@ class GpMixture:
     def predict_gradients(self, x) -> torch.Tensor:
         x = self._x(x)
         if self.n_clusters == 1:
-            return gp_predict_gradients(self.experts[0], x)
-        grads = torch.stack([gp_predict_gradients(e, x)
+            return _e_grad(self.experts[0], x)
+        grads = torch.stack([_e_grad(e, x)
                              for e in self.experts])  # (k, n, nx)
         rows = torch.arange(x.shape[0], device=x.device)
         if self._hard():
@@ -384,22 +475,22 @@ class GpMixture:
         # (ref: algorithm.rs:691-783)
         probas = predict_probas(self.gmx, x)  # (n, k)
         dprobas = predict_probas_derivatives(self.gmx, x)  # (n, k, nx)
-        means = torch.stack([gp_predict(e, x) for e in self.experts])
+        means = torch.stack([_e_predict(e, x) for e in self.experts])
         return (torch.einsum("nkd,kn->nd", dprobas, means)
                 + torch.einsum("nk,knd->nd", probas, grads))
 
     def predict_var_gradients(self, x) -> torch.Tensor:
         x = self._x(x)
         if self.n_clusters == 1:
-            return gp_predict_var_gradients(self.experts[0], x)
-        vgrads = torch.stack([gp_predict_var_gradients(e, x)
+            return _e_vargrad(self.experts[0], x)
+        vgrads = torch.stack([_e_vargrad(e, x)
                               for e in self.experts])
         rows = torch.arange(x.shape[0], device=x.device)
         if self._hard():
             return vgrads[predict_cluster(self.gmx, x), rows]
         probas = predict_probas(self.gmx, x)
         dprobas = predict_probas_derivatives(self.gmx, x)
-        vrs = torch.stack([gp_predict_valvar(e, x)[1] for e in self.experts])
+        vrs = torch.stack([_e_valvar(e, x)[1] for e in self.experts])
         return (2.0 * torch.einsum("nk,nkd,kn->nd", probas, dprobas, vrs)
                 + torch.einsum("nk,knd->nd", probas**2, vgrads))
 
@@ -419,12 +510,12 @@ def optimize_heaviside_factor(experts, gmx: GaussianMixture, xtest,
     """Grid search of the smoothing factor on held-out data
     (ref: optimize_heaviside_factor, algorithm.rs:349-378). The experts'
     predictions do not depend on the factor: they are made once."""
-    ref = experts[0].x_norm
+    ref = experts[0].theta
     xtest = torch.as_tensor(xtest, dtype=ref.dtype).to(ref.device)
     ytest = torch.as_tensor(ytest, dtype=ref.dtype).to(ref.device)
     factors = np.linspace(0.1, 2.1, 20)
     denom = float(torch.sqrt(torch.sum(xtest.double() ** 2)))
-    means = torch.stack([gp_predict(e, xtest) for e in experts])  # (k, p)
+    means = torch.stack([_e_predict(e, xtest) for e in experts])  # (k, p)
     errs = []
     for f in factors:
         probas = predict_probas(gmx.with_heaviside(float(f)), xtest)
@@ -438,8 +529,10 @@ def optimize_heaviside_factor(experts, gmx: GaussianMixture, xtest,
 
 def expert_params(mix: GpMixture) -> list:
     """Per-expert (trend, corr, theta), which a later refit can reuse as
-    fixed hyperparameters (ref: solver_impl.rs:643-645 q_optmod reuse)."""
-    return [(e.trend, e.corr, e.theta.double().cpu().tolist())
+    fixed hyperparameters (ref: solver_impl.rs:643-645 q_optmod reuse);
+    None for a sparse expert (always retrained)."""
+    return [None if isinstance(e, SgpModel)
+            else (e.trend, e.corr, e.theta.double().cpu().tolist())
             for e in mix.experts]
 
 
@@ -519,6 +612,8 @@ def train_moe(
     theta_init=None,
     theta_bounds=None,
     gp_type: str = "full",
+    n_inducing: int = 10,
+    sparse_method: str = "FITC",
     device=None,
     dtype=None,
     times: Optional[dict] = None,
@@ -526,12 +621,15 @@ def train_moe(
     """Train a mixture of GP experts (ref: train, algorithm.rs:70-205).
 
     ``n_clusters``: > 0 fixed; 0 automatic; < 0 automatic up to
-    -n_clusters. ``gp_type="sparse"`` raises (the sparse GP is not ported).
+    -n_clusters. ``gp_type``: "full" dense kriging experts or "sparse"
+    FITC / VFE experts (``sparse_method``) with ``n_inducing`` points (ref:
+    GpType, moe/src/parameters.rs:98-108); sparse experts take float64
+    points unless ``dtype`` says otherwise (gp/sgp.py).
     ``times`` (a dict) collects the seconds of the steps: "gmm", "cv" and
     "fit" (the CV and the fits of the first experts), "heaviside",
     "retrain"."""
     if gp_type == "sparse":
-        raise sparse_not_ported("train_moe(gp_type='sparse')")
+        dtype = dtype or torch.float64
     device, dtype = _placement(x, device, dtype)
     x = np.atleast_2d(_host(x))
     y = _host(y).reshape(x.shape[0])
@@ -550,7 +648,8 @@ def train_moe(
 
     data = torch.as_tensor(np.hstack([x, y[:, None]]), dtype=dtype).to(
         device)
-    expert_kw = dict(device=device, dtype=dtype)
+    expert_kw = dict(gp_type=gp_type, n_inducing=n_inducing,
+                     sparse_method=sparse_method, device=device, dtype=dtype)
     if k == 1:
         expert = find_best_expert(
             x, y, regr_names, corr_names, kpls_dim, n_start, seed,

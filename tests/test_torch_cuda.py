@@ -788,6 +788,102 @@ def test_train_moe_card_vs_cpu_on_the_piecewise_design(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=tol)
 
 
+# ---------------------------------------------------------------------------
+# the sparse GP on the card: K1 under autograd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["absolute_exponential", "matern32",
+                                  "matern52"])
+def test_k1gram_forward_and_backward_on_the_card(dev, name):
+    """A Gram whose theta requires grad (300 x 30 000, d=10: above the
+    dispatch threshold) launches K1 once through ``K1Gram``; its value
+    agrees with the plain version at K1's atol, and its theta gradient with
+    autograd through the plain formula in float32 and in float64 (error
+    over the largest component within 1e-4)."""
+    x1, x2, th = _k1_inputs(dev, 300, 30_000, 10, 31, theta=(0.1, 0.6))
+    weight = torch.randn((300, 30_000), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    thg = th.clone().requires_grad_(True)
+    before = ck.launches
+    r = tk.corr_cross(name, x1, x2, thg)
+    assert ck.launches == before + 1 and r.grad_fn is not None
+    (got,) = torch.autograd.grad((weight * r).sum(), thg)
+    torch.testing.assert_close(r.detach(),
+                               ck.corr_cross_plain(name, x1, x2, th),
+                               rtol=0, atol=K1_ATOL)
+    for dtype in (torch.float32, torch.float64):
+        t = th.to(dtype).requires_grad_(True)
+        ref_r = torch.exp(tk.log_corr_cross(name, x1.to(dtype),
+                                            x2.to(dtype), t))
+        (ref,) = torch.autograd.grad((weight.to(dtype) * ref_r).sum(), t)
+        err = float((got.double() - ref.double()).abs().max()
+                    / ref.double().abs().max())
+        print(f"{name} {dtype}: K1Gram theta gradient rel err {err:.3e}")
+        assert err <= 1e-4
+
+
+def test_sgp_fit_on_the_card_equals_the_cpu(dev):
+    """The same FITC fit (float64, the same draws: one CPU generator) on
+    the card and on the CPU: likelihood rtol 1e-6, predictions within
+    1e-5 std(y)."""
+    from egobox_torch.gp import sgp
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (400, 2))
+    y = np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + 0.05 * rng.standard_normal(
+        400)
+    xq = rng.uniform(-1, 1, (50, 2))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        m = sgp.fit_sgp(torch.tensor(x, device=device),
+                        torch.tensor(y, device=device), n_inducing=20,
+                        n_start=4, seed=3)
+        out[device.type] = (float(m.likelihood),
+                            sgp.sgp_predict(m, xq).cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-6)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-5 * np.std(y))
+
+
+def test_sgp_fit_takes_k1_at_every_cross_gram(dev):
+    """A Matern 5/2 FITC fit of numpy float32 input (128 inducing points,
+    8 000 points, d=10: 1e7 terms per cross Gram) keeps float32 points and
+    builds every 128 x 8 000 Gram of its lanes with K1 through ``K1Gram``
+    (one launch per likelihood evaluation and one for the final
+    likelihood; the 128 x 128 K(Z, Z), below the dispatch threshold, in
+    the plain float32 formula); its likelihood within 1e-3 of a float64
+    recomputation of the same model (float64 Grams, the fit's nugget, 100
+    eps32 sigma2, as an absolute one). The same data as float64 runs no K1
+    launch."""
+    from egobox_torch.gp import sgp
+
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-1, 1, (8000, 10)).astype(np.float32)
+    y = (np.sum(np.sin(2 * x), axis=1)
+         + 0.05 * rng.standard_normal(8000)).astype(np.float32)
+    kw = dict(corr="matern52", n_inducing=128, n_start=2, max_iters=8,
+              seed=0)
+    ck.launch_shapes.clear()
+    info = {}
+    m = sgp.fit_sgp(x, y, info=info, **kw)
+    assert m.theta.dtype == torch.float64 and m.theta.is_cuda
+    assert m.z.dtype == torch.float32
+    assert ck.launch_shapes[(128, 8000)] == info["evaluations"] + 1
+    assert (128, 128) not in ck.launch_shapes
+    nugget = sgp._default_nugget(torch.float32) * float(m.sigma2)
+    lkh64, _ = sgp.fitc_likelihood(
+        "matern52", m.theta, m.sigma2, m.noise,
+        torch.tensor(x, dtype=torch.float64, device=dev),
+        torch.tensor(y, dtype=torch.float64, device=dev)[:, None],
+        m.z.double(), None, nugget)
+    assert abs(float(m.likelihood) - float(lkh64)) <= 1e-3 * abs(
+        float(lkh64))
+    before = ck.launches
+    m64 = sgp.fit_sgp(x.astype(np.float64), y.astype(np.float64), **kw)
+    assert m64.z.dtype == torch.float64 and ck.launches == before
+
+
 def test_a_capture_that_cannot_succeed_raises(dev):
     """An objective that reads a device value on the host (``.item()``)
     cannot be captured: the traced run raises when it captures, and does

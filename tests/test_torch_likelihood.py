@@ -15,6 +15,7 @@ import torch
 from egobox_tpu.gp import kpls as jkpls
 from egobox_tpu.gp import likelihood as jlk
 from egobox_tpu.optim import lbfgsb as jopt
+from egobox_torch.gp import kernels as tk
 from egobox_torch.gp import likelihood as tlk
 from egobox_torch.optim import lbfgsb as topt
 
@@ -229,8 +230,10 @@ def test_masked_equals_unpadded(corr):
 
 def test_blocked_l1_adjoint_matches_jax(monkeypatch):
     """The closed-form Matern contraction streams row blocks above the
-    dense budget; the blocks must sum to JAX's gradient."""
-    monkeypatch.setattr(tlk, "_DENSE_BUDGET", 300)
+    dense budget; the blocks must sum to JAX's gradient. The contraction
+    (``_l1_dphi``) lives in gp/kernels.py, which K1Gram's backward shares,
+    and reads its budget there."""
+    monkeypatch.setattr(tk, "_DENSE_BUDGET", 300)
     xn, yn, ys, theta, w = _problem(seed=3, kpls=True)
     v_t, g_t = _torch_vg("matern52", "constant", xn, yn, ys, theta, w, 1e-10)
     v_j, g_j = _jax_vg("matern52", "constant", xn, yn, ys, theta, w, 1e-10)
