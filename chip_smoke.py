@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the CUDA kernels from ``egobox_torch/csrc``;
+2. build: compiles the CUDA kernels from ``egobox_torch/csrc`` and the
+   native Nelder-Mead (host C++, ``egobox_torch/native``) with g++;
 3. K1 (Gram tile) against ``corr_cross_plain`` on the card, float32:
    general and symmetric launches, ragged shapes, d from 1 to 100, large
    theta, identical points, and the row sums it returns, every shape the
@@ -87,8 +88,28 @@ Phases (any failure raises and the script exits non-zero):
    that file, 5 folds; (e) ``train_moe(gp_type="sparse")`` of 2 VFE
    experts on moe_data.
 
-``--phases kernels,slice,egor,moe,sgp`` runs a subset after the build (and
-then prints neither the kernels line nor the result line).
+14. hd (``hd_phase``), high-dimensional and constrained Egor and the warm
+   starts of the fit, every run on the card with no device given: (a) the
+   MOPTA08-like problem (``make_mopta_problem``, a copy of
+   examples/mopta08_like.py: 124 inputs, 68 constraints) through CoEGO at
+   the reference's configuration, 6 iterations (the host path: seconds per
+   iteration split into fit, cloud and infill), its optimum feasible at
+   1e-4 and below the DoE's constrained best; (b) CoEGO on a d=120 sphere
+   with the per-group partial theta tuning and the improvement check, 10
+   iterations, y_opt below half the DoE's best; (c) xsinx under a numpy
+   constraint x <= 18 (a host callback), every proposal polished by the
+   native Nelder-Mead: the polish's seconds and host reads call by call;
+   (d) the sigma-weight portfolio on xsinx, 6 iterations; (e) the slice
+   fit with the ranked warm start (``rank_warmstart=4000``: K1 builds the
+   2 000^2 Grams of the multistart and the 4 000^2 of the ranking) and
+   with the second-fidelity draw, against fit_gp's default recipe (one
+   draw) and the slice's three draws at seeds 1-3 (likelihood at most
+   0.5 % below the default's, Q2 >= 0.98 for the default and the ranked
+   fit, float32 against float64), K1's launches by shape and K2's counted
+   from 0 around each fit.
+
+``--phases kernels,slice,egor,moe,sgp,hd`` runs a subset after the build
+(and then prints neither the kernels line nor the result line).
 
 Every Egor phase prints its seconds per EGO iteration (per phase on the
 unfused path, per kind of graph call on the fused one, per chunk on the
@@ -97,8 +118,8 @@ PyTorch's sync debug mode reports), the graphs captured, their capture
 seconds, the most memory their pool held, the graphs dropped, and the
 replays per iteration.
 
-Phases 6-13 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
-``gp.fit_sgp`` / ``SparseGpMix`` with no device
+Phases 6-14 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
+``gp.fit_sgp`` / ``SparseGpMix`` / ``gp.fit_gp`` with no device
 (the card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
@@ -108,6 +129,7 @@ imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -164,6 +186,24 @@ SGP_LKH_RTOL, SGP_OPT_RTOL, SGP_GRAD_RTOL = 1e-3, 1e-3, 3e-6
 # reach this (its experts take no warm start, egobox_tpu's recipe, and
 # settle with a noise of ~0.2 var(y): Q2 0.7187 on the H100)
 SGP_MIX_N, SGP_MIX_NZ, MOE_SGP_NZ, MOE_SGP_Q2_MIN = 20_000, 256, 128, 0.5
+# the high-dimensional phase: (a) the MOPTA08-like problem at the reference
+# scale (mopta08.rs: 124 inputs, 68 constraints, cstr_tol 1e-4, a 125-point
+# DoE, EI with the constraints in the criterion, COBYLA, 5 cooperative
+# groups, a theta refit every 2nd iteration; tests/test_mopta_like.py:48-84),
+# 6 iterations; (b) CoEGO on a d=120 sphere (tests/test_ego.py:260-288) in
+# the reference-exact modes, 10 iterations, gate y_opt < 0.5 x the DoE's
+# best; (c) xsinx s.t. a numpy constraint x <= 18 (tests/test_ego.py:
+# 318-331), 15 iterations; (d) the portfolio on xsinx
+# (tests/test_env_features.py:53-59), 6 iterations; (e) the slice fit with
+# the ranked warm start and with the second-fidelity draw, each likelihood
+# at most 0.5 % of its magnitude below fit_gp's default recipe's (one
+# subsample draw; tests/test_gp.py:217-233), at the slice's seeds 1-3
+MOPTA_D, MOPTA_N_CSTR, MOPTA_TOL, MOPTA_ITERS = 124, 68, 1e-4, 6
+COEGO_D, COEGO_N_DOE, COEGO_ITERS = 120, 125, 10
+HD_DEFAULT_KW = dict(FIT_KW, sub_draws=1)
+HD_RANK_KW = dict(FIT_KW, sub_draws=1, rank_warmstart=4000)
+HD_DRAW2_KW = dict(FIT_KW, sub_draws=2, subsample_warmstart2=4000)
+HD_LKH_SLACK = 0.005
 
 
 def device_phase():
@@ -641,6 +681,35 @@ def g24_t(p):
     c2 = (-4.0 * x1**4 + 32.0 * x1**3 - 88.0 * x1**2 + 96.0 * x1 + x2
           - 36.0)
     return torch.cat([-x1 - x2, c1, c2], dim=1)
+
+
+def make_mopta_problem(d: int = 124, n_cstr: int = 68, seed: int = 2008):
+    """The MOPTA08-like problem, a copy of examples/mopta08_like.py's
+    ``make_problem`` (that module imports egobox_tpu): 124 inputs in [0, 1],
+    a weighted "mass" quadratic whose unconstrained minimizer lies partly
+    outside the box and the feasible set, 68 smooth ellipsoidal constraints
+    g_i(x) <= 0 with a strictly feasible anchor. Returns (fn, x_feasible);
+    ``fn`` maps (n, d) to (n, 1 + n_cstr), objective first (the
+    reference's mopta() convention, mopta08.rs:173-207)."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 + rng.uniform(size=d)  # positive "mass" weights
+    # unconstrained minimizer: partly outside the box AND the feasible set
+    x_u = rng.uniform(-0.25, 1.25, size=d)
+    # strictly feasible anchor (margins below guarantee g_i(x_f) < 0)
+    x_f = 0.35 + 0.30 * rng.uniform(size=d)
+    centers = rng.uniform(0.0, 1.0, size=(n_cstr, d))
+    scales = rng.uniform(0.5, 1.5, size=(n_cstr, d)) / d
+    margins = rng.uniform(0.06, 0.65, size=n_cstr)
+    radii = np.einsum("cd,cd->c", scales, (x_f - centers) ** 2) + margins
+
+    def fn(x):
+        x = np.atleast_2d(np.asarray(x, dtype=float))
+        f = ((x - x_u) ** 2) @ w / d
+        diff = x[:, None, :] - centers[None, :, :]
+        g = np.einsum("cd,ncd->nc", scales, diff**2) - radii[None, :]
+        return np.concatenate([f[:, None], g], axis=1)
+
+    return fn, x_f
 
 
 def run_counted(torch, fn):
@@ -1529,7 +1598,278 @@ def sgp_phase(torch, egx, ck):
     return out
 
 
-PHASES = ("kernels", "slice", "egor", "moe", "sgp")
+def _iteration_split(egor):
+    """Seconds of each host-path iteration: fit, cloud, infill (and the
+    polish's seconds and evaluations where there is one)."""
+    keys = ("fit", "cloud", "infill", "polish", "polish_evals", "total")
+    return [{k: t[k] for k in keys if k in t} for t in egor.iteration_times]
+
+
+def hd_mopta(torch, egx):
+    """(a) the MOPTA08-like problem at full width through CoEGO on the card
+    (the host path): the reported optimum feasible at 1e-4 and below the
+    DoE's constrained best, or, when no DoE point is feasible, finite
+    (tests/test_mopta_like.py:48-84)."""
+    fn, _ = make_mopta_problem(MOPTA_D, MOPTA_N_CSTR)
+    n_doe = MOPTA_D + 1
+
+    def make():
+        return egx.Egor(
+            [[0.0, 1.0]] * MOPTA_D, n_cstr=MOPTA_N_CSTR,
+            cstr_tol=np.full(MOPTA_N_CSTR, MOPTA_TOL), n_doe=n_doe,
+            infill_strategy=egx.InfillStrategy.EI, cstr_infill=True,
+            infill_optimizer=egx.InfillOptimizer.COBYLA, coego_n_coop=5,
+            q_optmod=2, seed=EGOR_SEED)
+
+    name = f"hd mopta08-like d={MOPTA_D} n_cstr={MOPTA_N_CSTR} coego(5)"
+    egor = make()
+    res, wall, reads = run_counted(
+        torch, lambda: egor.minimize(fn, max_iters=MOPTA_ITERS))
+    _egor_checks(torch, name, egor, res, MOPTA_ITERS, torch.float64)
+    st = egor_stats(name, egor, wall, reads, MOPTA_ITERS)
+    st["per_iteration"] = split = _iteration_split(egor)
+    print(f"{name}: seconds per iteration (fit, cloud, infill): "
+          f"{[(t['fit'], t['cloud'], t['infill']) for t in split]!r}",
+          flush=True)
+    doe = res.y_doe[:n_doe]
+    over = np.maximum(doe[:, 1:] - MOPTA_TOL, 0.0).sum(axis=1)
+    doe_feasible = bool((over <= 0.0).any())
+    doe_best = (float(doe[over <= 0.0, 0].min()) if doe_feasible
+                else float(doe[int(np.argmin(over)), 0]))
+    violated = int(np.sum(res.y_opt[1:] > MOPTA_TOL + 1e-12))
+    print(f"{name}: DoE feasible {doe_feasible}, DoE constrained best "
+          f"{doe_best!r}; y_opt {res.y_opt[0]!r} with {violated} of "
+          f"{MOPTA_N_CSTR} constraints violated", flush=True)
+    if violated:
+        raise RuntimeError(f"{name}: the optimum violates {violated} "
+                           f"constraints")
+    if doe_feasible and not res.y_opt[0] < doe_best:
+        raise RuntimeError(f"{name}: no improvement: {res.y_opt[0]} vs the "
+                           f"DoE's {doe_best}")
+    if not np.isfinite(res.y_opt[0]):
+        raise RuntimeError(f"{name}: y_opt {res.y_opt[0]}")
+    st.update(doe_feasible=doe_feasible, doe_best=doe_best,
+              y_opt=float(res.y_opt[0]))
+    return st
+
+
+def hd_coego_sphere(torch, egx):
+    """(b) CoEGO on a d=120 sphere with the per-group partial theta tuning
+    and the improvement check (the reference-exact modes): y_opt < 0.5 x
+    the DoE's best (tests/test_ego.py:260-288)."""
+    def sphere(x):
+        return np.sum(np.atleast_2d(x) ** 2, axis=1, keepdims=True)
+
+    def make():
+        egor = egx.Egor([[-5.0, 5.0]] * COEGO_D, seed=EGOR_SEED,
+                        coego_n_coop=5, n_doe=COEGO_N_DOE,
+                        infill_strategy=egx.InfillStrategy.EI)
+        egor.config.coego_partial_theta_tuning = True
+        return egor
+
+    name = f"hd coego sphere d={COEGO_D} partial tuning + improvement check"
+    os.environ["EGOR_COEGO_IMPROVEMENT_CHECK"] = "1"
+    try:
+        res, st = egor_run(torch, egx, name, make, sphere, COEGO_ITERS)
+    finally:
+        os.environ.pop("EGOR_COEGO_IMPROVEMENT_CHECK")
+    doe_best = float(res.y_doe[:COEGO_N_DOE, 0].min())
+    print(f"{name}: y_opt {res.y_opt[0]!r}, DoE best {doe_best!r}",
+          flush=True)
+    if not res.y_opt[0] < 0.5 * doe_best:
+        raise RuntimeError(f"{name}: y_opt {res.y_opt[0]} not below half "
+                           f"the DoE's best {doe_best}")
+    st.update(doe_best=doe_best, y_opt=float(res.y_opt[0]))
+    return st
+
+
+def hd_host_constraint(torch, egx):
+    """(c) xsinx s.t. x <= 18 given as a numpy function that returns a
+    python float (a host callback): every proposal polished by the native
+    Nelder-Mead, each of its evaluations one posterior evaluation on the
+    card. The polish's seconds and host reads (PyTorch's sync debug mode)
+    are counted call by call. Gate: x_opt <= 18 + 1e-3, |y_opt -
+    xsinx(18)| < 0.5."""
+    import warnings
+
+    def c18(x):
+        return float(np.asarray(x, dtype=float).ravel()[0] - 18.0)
+
+    name = "hd xsinx s.t. a numpy constraint x <= 18"
+    egor = egx.Egor([[0.0, 25.0]], seed=EGOR_SEED)
+    polish = egor.solver._fcstr_polish
+    calls = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*a, **k):
+            torch.cuda.synchronize()
+            n0, t0 = len(caught), time.perf_counter()
+            out = polish(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0, sum(
+                "synchroniz" in str(w.message) for w in caught[n0:])))
+            return out
+
+        egor.solver._fcstr_polish = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            res = egor.minimize(xsinx, fcstrs=[c18], max_iters=15)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    _egor_checks(torch, name, egor, res, 15, torch.float64)
+    st = egor_stats(name, egor, wall, reads, 15)
+    evals = [t["polish_evals"] for t in egor.iteration_times]
+    st.update(polish_s=[c[0] for c in calls],
+              polish_host_reads=[c[1] for c in calls], polish_evals=evals)
+    print(f"{name}: {len(calls)} polishes, seconds {st['polish_s']!r}, "
+          f"host reads {st['polish_host_reads']!r}, Nelder-Mead evaluations "
+          f"{evals!r}", flush=True)
+    y18 = float(xsinx(np.array([[18.0]]))[0, 0])
+    if not (res.x_opt[0] <= 18.0 + 1e-3 and abs(res.y_opt[0] - y18) < 0.5):
+        raise RuntimeError(f"{name}: x_opt {res.x_opt}, y_opt {res.y_opt} "
+                           f"(xsinx(18) = {y18})")
+    if len(calls) != 15:
+        raise RuntimeError(f"{name}: {len(calls)} polishes in 15 iterations")
+    return st
+
+
+def hd_portfolio(torch, egx):
+    """(d) the sigma-weight portfolio (EGOR_USE_GP_VAR_PORTFOLIO=1) on
+    xsinx, 6 iterations: at least 11 points, y_opt < -14
+    (tests/test_env_features.py:53-59)."""
+    name = "hd xsinx portfolio"
+    os.environ["EGOR_USE_GP_VAR_PORTFOLIO"] = "1"
+    try:
+        res, st = egor_run(torch, egx, name,
+                           lambda: egx.Egor([[0.0, 25.0]], seed=EGOR_SEED),
+                           xsinx, 6)
+    finally:
+        os.environ.pop("EGOR_USE_GP_VAR_PORTFOLIO")
+    n = res.x_doe.shape[0]
+    print(f"{name}: {n} points", flush=True)
+    if not (n >= 5 + 6 and res.y_opt[0] < -14.0):
+        raise RuntimeError(f"{name}: {n} points, y_opt {res.y_opt}")
+    st["points"] = n
+    return st
+
+
+def hd_warmstart_fits(torch, ck, chk):
+    """(e) the slice fit (n=10 000, d=10, Matern 5/2, float32, the K2-driven
+    Cholesky) with the ranked warm start (``rank_warmstart=4000``) and with
+    the second-fidelity draw (``sub_draws=2, subsample_warmstart2=4000``)
+    beside fit_gp's default recipe (one subsample draw, ``HD_DEFAULT_KW``)
+    and the slice's shipped one (three draws), at the slice's gated seeds
+    1-3. K1's launches by shape and K2's counted around each fit.
+    Gates: the float32 likelihood at theta* within 0.1 % of a float64
+    recomputation on the card (every fit); each warm start's likelihood at
+    least the default recipe's less 0.5 % of its magnitude (the rule of
+    tests/test_gp.py:217-233, which holds the multi-draw recipe to the
+    one-draw default); holdout Q2 >= 0.98 for the default and the ranked
+    fit. The second-fidelity fit's Q2 is printed, not gated: 0.97993 at
+    seed 1 on the H100 (its likelihood 1.4 % above the default's, whose Q2
+    is 0.98112), so the 0.98 line does not tell a sound fit of this recipe
+    from a faulty one (PERF.md)."""
+    from egobox_torch import gp
+    from egobox_torch.gp.likelihood import reduced_likelihood
+
+    out = {}
+    os.environ["EGOBOX_CHOL"] = "pallas:256:highest"
+    try:
+        for seed in (1, 2, 3):
+            x, y, xh, yh = make_data(torch, seed)
+            x64 = torch.tensor(x, dtype=torch.float32, device=DEV).double()
+            y64 = torch.tensor(y, dtype=torch.float32,
+                               device=DEV).double()[:, None]
+            xm, xs, ym, ys = x64.mean(0), x64.std(0), y64.mean(0), y64.std(0)
+            runs = {}
+            for label, kw in (("default", HD_DEFAULT_KW), ("slice", FIT_KW),
+                              ("rank", HD_RANK_KW), ("draw2", HD_DRAW2_KW)):
+                # the fit's own launches, as differences: the phase's
+                # counts (hd_phase) run on through every fit
+                k1_0, k2_0 = ck.launches, chk.launches
+                shapes_0 = collections.Counter(ck.launch_shapes)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model = gp.fit_gp(x, y, seed=seed, **kw)
+                lkh = float(model.likelihood)  # host sync
+                fit_s = time.perf_counter() - t0
+                k1, k2 = ck.launches - k1_0, chk.launches - k2_0
+                shapes = {f"{a}x{b}": c for (a, b), c in
+                          sorted((ck.launch_shapes - shapes_0).items())}
+                mean, _ = gp.predict_valvar(model, xh)
+                q2 = _q2(mean.double().cpu().numpy(), yh.double().cpu()
+                         .numpy())
+                os.environ["EGOBOX_CHOL"] = "native"
+                lkh64, _ = reduced_likelihood(
+                    "matern52", "constant", (x64 - xm) / xs, (y64 - ym) / ys,
+                    ys, model.theta.double(), None, FIT_KW["nugget"])
+                os.environ["EGOBOX_CHOL"] = "pallas:256:highest"
+                rel = abs(lkh - float(lkh64)) / abs(float(lkh64))
+                runs[label] = dict(fit_s=fit_s, likelihood=lkh,
+                                   likelihood_f64=float(lkh64), rel=rel,
+                                   q2=q2, k1_launches=k1, k2_launches=k2,
+                                   k1_by_shape=shapes,
+                                   theta=model.theta.tolist())
+                print(f"hd fit {label} seed {seed}: {fit_s!r} s, likelihood "
+                      f"{lkh!r} (float64 {float(lkh64)!r}, rel {rel!r}), "
+                      f"holdout Q2 {q2!r}; K1 launches {k1} by shape "
+                      f"{shapes}, K2 launches {k2}", flush=True)
+                del model
+                if not rel <= 1e-3:
+                    raise RuntimeError(f"hd fit {label} seed {seed}: float32 "
+                                       f"likelihood {lkh} vs {float(lkh64)}")
+                if label in ("default", "rank") and not q2 >= Q2_MIN:
+                    raise RuntimeError(f"hd fit {label} seed {seed}: Q2 {q2}")
+            base = runs["default"]["likelihood"]
+            three = runs["slice"]["likelihood"]
+            for label in ("rank", "draw2"):
+                lkh = runs[label]["likelihood"]
+                print(f"hd fit {label} seed {seed}: likelihood against the "
+                      f"default recipe's {(lkh - base) / abs(base):+.3%}, "
+                      f"against the slice's three draws "
+                      f"{(lkh - three) / abs(three):+.3%}", flush=True)
+                if not lkh >= base - HD_LKH_SLACK * abs(base):
+                    raise RuntimeError(f"hd fit {label} seed {seed}: "
+                                       f"likelihood {lkh} below the default "
+                                       f"recipe's {base} by more than "
+                                       f"{HD_LKH_SLACK:.1%}")
+            if not runs["rank"]["k1_by_shape"].get("4000x4000"):
+                raise RuntimeError("hd fit rank: K1 did not build the "
+                                   "ranking's 4000^2 Grams")
+            out[seed] = runs
+    finally:
+        os.environ["EGOBOX_CHOL"] = "native"
+    return out
+
+
+def hd_phase(torch, egx, ck, chk):
+    """High-dimensional and constrained Egor, and the warm starts of the
+    fit: (a)-(e) above, each timed, with K1's and K2's launches counted
+    from 0 around it ((a)-(d) run in float64 with the squared exponential:
+    neither kernel is on their path; (e) counts fit by fit as well)."""
+    out = {}
+    for key, fn in (("mopta", lambda: hd_mopta(torch, egx)),
+                    ("coego_sphere", lambda: hd_coego_sphere(torch, egx)),
+                    ("host_constraint", lambda: hd_host_constraint(torch,
+                                                                   egx)),
+                    ("portfolio", lambda: hd_portfolio(torch, egx)),
+                    ("fits", lambda: hd_warmstart_fits(torch, ck, chk))):
+        ck.launches, chk.launches = 0, 0
+        t0 = time.perf_counter()
+        out[key] = fn()
+        launches = {"corr_tile": ck.launches, "factor_panel": chk.launches}
+        print(f"hd {key}: {time.perf_counter() - t0!r} s, kernel launches "
+              f"{launches}", flush=True)
+        out[key] = dict(result=out[key], launches=launches)
+    return out
+
+
+PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd")
 
 
 def main():
@@ -1544,6 +1884,7 @@ def main():
                          f"{','.join(PHASES)}]")
     torch = device_phase()
     egx = import_port()
+    from egobox_torch import native
     from egobox_torch.gp import likelihood as lik
     from egobox_torch.ops import build, chol_kernel as chk, corr_kernel as ck
 
@@ -1552,6 +1893,11 @@ def main():
     build.load_library()
     print(f"build: {time.perf_counter() - t0!r} s -> "
           f"{lib_path.relative_to(ROOT)}", flush=True)
+    t0 = time.perf_counter()
+    native_path = native.build(force=True)
+    native.load()
+    print(f"build (native Nelder-Mead, g++): {time.perf_counter() - t0!r} s "
+          f"-> {native_path.relative_to(ROOT)}", flush=True)
     # the compiler's resource report: registers and spills per kernel
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         entry = re.search(r"entry function '.*?\d([a-z][a-z_]*_kernel"
@@ -1582,10 +1928,14 @@ def main():
     if "sgp" in phases:
         sgp = sgp_phase(torch, egx, ck)
         print(json.dumps({"sgp": sgp}), flush=True)
+    if "hd" in phases:
+        hd = hd_phase(torch, egx, ck, chk)
+        print(json.dumps({"hd": hd}), flush=True)
     if phases != PHASES:
         return
 
     d10 = egor["d10"]
+    hd_rank = hd["fits"]["result"][1]["rank"]  # seed 1's ranked fit
     kernels = [
         dict(name="corr_tile", route="cuda",
              source="egobox_torch/csrc/corr_tile.cu",
@@ -1601,11 +1951,14 @@ def main():
              launches_moe_fit_by_shape=moe_fit["k1_by_shape"],
              launches_sgp_fit=sgp["matern52"]["launches"],
              launches_sgp_fit_by_shape=sgp["matern52"]["shapes"],
+             launches_hd_rank_fit=hd_rank["k1_launches"],
+             launches_hd_rank_fit_by_shape=hd_rank["k1_by_shape"],
              sgp=sgp["k1"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",
-             launches=launches["factor_panel"], **k2),
+             launches=launches["factor_panel"],
+             launches_hd_rank_fit=hd_rank["k2_launches"], **k2),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

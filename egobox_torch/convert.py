@@ -119,10 +119,11 @@ def gmx_from_numpy(fields: dict, device=None, dtype=None) -> GaussianMixture:
 def gp_mixture_from_numpy(experts: list, gmx_fields: dict,
                           recombination=Recombination.SMOOTH, device=None,
                           dtype=None) -> GpMixture:
-    """``GpMixture`` from egobox_tpu's: ``experts`` is one triple per
-    expert, (fields, corr, trend) for a dense one as ``gp_model_from_numpy``
-    takes them, (fields, corr, method) for a sparse one (its fields hold
-    ``w_vec``) as ``sgp_model_from_numpy`` takes them; ``gmx_fields`` the
+    """``GpMixture`` built from the arrays of egobox_tpu's mixture:
+    ``experts`` is one triple per expert, (fields, corr, trend) for a dense
+    one as ``gp_model_from_numpy`` takes them, (fields, corr, method) for
+    a sparse one (its fields hold ``w_vec``) as ``sgp_model_from_numpy``
+    takes them; ``gmx_fields`` the
     mixture's arrays (``gmx_from_numpy``). A mixture with a sparse expert
     is float64 unless ``dtype`` says otherwise."""
     if dtype is None and any("w_vec" in f for f, _, _ in experts):

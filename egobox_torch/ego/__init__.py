@@ -6,8 +6,10 @@ unfused host loop (``EGOBOX_NO_FUSED_STEP=1``), the traced whole run
 (``Egor(traced_run=True)``), ``EgorBatch``, the criteria, the lockstep
 multistart infill optimizer, TREGO, mixed-integer folding and clustered
 (mixture-of-experts) surrogates, on the host path and as the fused
-clustered iteration. CoEGO, the sigma-weight portfolio and
-``EgorBatch(mesh=)`` are not.
+clustered iteration; on the host path CoEGO (``ego.coego``), the
+sigma-weight portfolio (``ego.portfolio``) and function constraints that
+are host callbacks (polished by ``egobox_torch.native``). Not ported:
+``EgorBatch(mesh=)``.
 """
 
 from .batch import EgorBatch

@@ -24,9 +24,16 @@ whenever the clustering is (re)made, and the fused clustered iteration
 while it stands (``_fast_path_moe_ok``; ``EGOBOX_NO_FUSED_MOE=1`` selects
 the host path).
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-the sigma-weight portfolio, CoEGO, and the derivative-free polish for
-function constraints that are host callbacks.
+CoEGO (``coego_n_coop > 1``, ego/coego.py) and the sigma-weight portfolio
+(``EGOR_USE_GP_VAR_PORTFOLIO``, ego/portfolio.py) run on the host path, as
+in egobox_tpu. So do function constraints that are host callbacks (a numpy
+function, a python float out): on the host path no function constraint
+enters the infill optimizer; the proposal is polished afterwards by the
+native derivative-free solver (``_fcstr_polish``, egobox_torch/native),
+whose every evaluation is one posterior evaluation on the solver's device.
+Constraints written in torch operations enter the fused iterations' own
+optimizer instead (``_fcstrs_traceable``; ``EGOBOX_NO_FCSTR_TRACE=1``
+sends them to the host path and the polish).
 """
 
 from __future__ import annotations
@@ -63,12 +70,7 @@ from .fused_step import (
     fused_select_points_q,
 )
 from .graphs import GraphCache
-from .infill_optim import (
-    _eval_fcstrs,
-    compute_scaling,
-    optimize_infill,
-    virtual_point,
-)
+from .infill_optim import compute_scaling, optimize_infill, virtual_point
 from .recorders import record_gp_models
 from .start_points import middle_picker_starts
 from .state import EgorState
@@ -101,12 +103,6 @@ _OPT_NAME = {
 class NoMorePointToAddError(RuntimeError):
     """Raised when point-addition retries are exhausted: the solver is
     considered converged (ref: solver_impl.rs:505-515)."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"egobox_torch: {what} is not ported (ROADMAP Queue 1: {item})"
-    )
 
 
 class SolverDraws:
@@ -449,9 +445,33 @@ class EgorSolver:
                 ).copy()
             else:
                 theta0s = np.full((m, dim), 0.1)
-        if self.config.coego_n_coop > 1:
-            raise _not_ported("CoEGO (coego_n_coop > 1)",
-                              "CoEGO and the sigma-weight portfolio")
+        if (
+            self.config.coego_n_coop > 1
+            and self.config.coego_partial_theta_tuning
+            and optimize_theta
+            and state.activity is not None
+        ):
+            # CoEGO partial theta tuning: one fit per activity group, only
+            # the group's theta components free, the inits carried from
+            # group to group (ref: solver_impl.rs:162-247 + coego.rs:98-126)
+            from .coego import activity_theta_mask
+
+            models = None
+            for group in state.activity:
+                models = train_gp_surrogates(
+                    self._tensor(xt), self._tensor(yt), None, self.spec,
+                    theta0s=self._tensor(theta0s),
+                    optimize_theta=True,
+                    theta_bounds=self._tensor(self.theta_bounds),
+                    seed=int(state.rng.integers(0, 2**31)),
+                    active_theta=torch.as_tensor(
+                        activity_theta_mask(group, dim), device=self.device),
+                    n_start=self._gp_n_start(state),
+                    fit_draws=self.draws.fit_draws,
+                )
+                theta0s = models.theta.double().cpu().numpy()
+            state.theta_inits = theta0s
+            return models
         models = train_gp_surrogates(
             self._tensor(xt), self._tensor(yt), None, self.spec,
             theta0s=self._tensor(theta0s),
@@ -492,9 +512,12 @@ class EgorSolver:
     def _fcstrs_traceable(self, fcstrs) -> bool:
         """True when every user function constraint maps one (nx,) tensor
         to a tensor of one value (probed once per function on the middle of
-        the box): those enter the optimizer as hard constraints. Anything
-        host-bound (numpy conversions, a python float out) would need the
-        derivative-free polish, which is not ported."""
+        the box): those enter the fused iterations' optimizer as hard
+        constraints. Anything host-bound (numpy conversions, a python float
+        out) takes the host path and its derivative-free polish
+        (``_fcstr_polish``). Kill-switch: EGOBOX_NO_FCSTR_TRACE."""
+        if os.environ.get("EGOBOX_NO_FCSTR_TRACE"):
+            return False
         key = tuple(fcstrs)
         hit = self._fcstr_probe_cache.get(key)
         if hit is not None:
@@ -803,21 +826,6 @@ class EgorSolver:
         self._iter_dtype = egor_dtype(
             self.device, state.x_data.shape[0] + cfg.q_points - 1)
 
-        if cfg.coego_n_coop > 1:
-            raise _not_ported("CoEGO (coego_n_coop > 1)",
-                              "CoEGO and the sigma-weight portfolio")
-        if os.environ.get("EGOR_USE_GP_VAR_PORTFOLIO"):
-            raise _not_ported(
-                "the sigma-weight portfolio (EGOR_USE_GP_VAR_PORTFOLIO)",
-                "CoEGO and the sigma-weight portfolio",
-            )
-        if fcstrs and not self._fcstrs_traceable(fcstrs):
-            raise _not_ported(
-                "a function constraint that is a host callback (it does "
-                "not map an (nx,) tensor to a one-value tensor) needs the "
-                "derivative-free polish, which",
-                "native Nelder-Mead polish for host-callback constraints",
-            )
         if self._fast_path_ok(fcstrs):
             fmin = float(state.y_data[state.best_index, 0])
             return self._select_next_point_fused(
@@ -829,11 +837,6 @@ class EgorSolver:
                 state, fmin, xlimits, seed_xlimits, crit, cstrat, fcstrs)
 
         surrogate_tols = self._tensor(state.cstr_tol[:n_cstr])
-        n_fcstr = len(fcstrs)
-        fcstr_tols = (
-            self._tensor(state.cstr_tol[n_cstr:n_cstr + n_fcstr])
-            if n_fcstr else None
-        )
 
         x_dat: List[np.ndarray] = []
         y_dat: List[np.ndarray] = []
@@ -843,11 +846,23 @@ class EgorSolver:
         lo = self._tensor(xlimits[:, 0])
         hi = self._tensor(xlimits[:, 1])
         times = {"fit": 0.0, "cloud": 0.0, "infill": 0.0}
+        if fcstrs:
+            times.update(polish=0.0, polish_evals=0)
 
         def clock():
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return time.perf_counter()
+
+        if cfg.coego_n_coop > 1:
+            # resample the cooperative activity once per iteration so both
+            # the partial theta tuning and the partial infill optimization
+            # see the same groups (ref: egor_solver.rs:372-377)
+            from .coego import get_random_activity
+
+            state.activity = get_random_activity(
+                state.rng, self.nx, cfg.coego_n_coop
+            )
 
         for i in range(cfg.q_points):
             if x_dat:
@@ -870,15 +885,6 @@ class EgorSolver:
                 models, cloud, fmin, surrogate_tols,
                 crit=crit, n_cstr=n_cstr, cstr_infill=cfg.cstr_infill,
             )
-            scale_fcstr = None
-            if n_fcstr:
-                # scale of the function constraints: max |g| over the
-                # scaling cloud (ref: solver_computations.rs:181-189)
-                with torch.no_grad():
-                    gcloud = _eval_fcstrs(fcstrs, cloud)
-                scale_fcstr = torch.clamp(
-                    torch.max(torch.abs(gcloud), dim=1).values, min=1e-12
-                )
             t2 = clock()
 
             starts = self._tensor(
@@ -891,27 +897,103 @@ class EgorSolver:
             feasibility = state.feasibility or not os.environ.get(
                 "EGOR_USE_MAX_PROBA_OF_FEASIBILITY"
             )
-            xk, fk, _ = optimize_infill(
-                models, starts, lo, hi, fmin, scale_infill, scale_wb2,
-                scale_cstr, surrogate_tols, 1.0, fcstr_tols, scale_fcstr,
+            # no function constraint enters the optimizer here: they join
+            # through the polish below, as on egobox_tpu's host path
+            crit_kwargs = dict(
+                fmin=fmin, scale_infill=scale_infill, scale_wb2=scale_wb2,
+                scale_cstr=scale_cstr, cstr_tols=surrogate_tols,
                 crit=crit, cstr_strategy=cstrat, n_cstr=n_cstr,
                 cstr_infill=cfg.cstr_infill, feasibility=feasibility,
                 optimizer=_OPT_NAME[cfg.infill_optimizer],
-                fcstr_fns=fcstrs,
             )
-            infill_value = float(-fk)
+            if (
+                os.environ.get("EGOR_USE_GP_VAR_PORTFOLIO")
+                and cfg.q_points == 1
+            ):
+                # sigma-weight portfolio: re-optimize the criterion with 13
+                # log-spaced weights on the GP std, DBSCAN-cluster the
+                # proposals, evaluate one representative per cluster
+                # (ref: solver_impl.rs:585-610, utils/portfolio.rs)
+                from .portfolio import SIGMA_WEIGHTS, select_from_portfolio
+
+                props = []
+                for sw in SIGMA_WEIGHTS:
+                    s_inf, s_cstr, s_wb2 = compute_scaling(
+                        models, cloud, fmin, surrogate_tols, sw,
+                        crit=crit, n_cstr=n_cstr,
+                        cstr_infill=cfg.cstr_infill,
+                    )
+                    xk_w, _, _ = optimize_infill(
+                        models, starts, lo, hi, fmin, s_inf, s_wb2,
+                        s_cstr, surrogate_tols, sw,
+                        crit=crit, cstr_strategy=cstrat, n_cstr=n_cstr,
+                        cstr_infill=cfg.cstr_infill,
+                        feasibility=feasibility,
+                        optimizer=_OPT_NAME[cfg.infill_optimizer],
+                    )
+                    props.append(xk_w)
+                props = torch.stack(props).double().cpu().numpy()
+                keep_idx = select_from_portfolio(props)
+                i_min = int(np.argmin(state.y_data[:, 0]))
+                y_best = self._tensor(state.y_data[i_min])
+                for ki in keep_idx:
+                    yk_i = virtual_point(models, self._tensor(props[ki]),
+                                         y_best, strategy=qei)
+                    x_dat.append(props[ki][None, :])
+                    y_dat.append(yk_i.double().cpu().numpy()[None, :])
+                infill_value = np.nan
+                times["infill"] += clock() - t2
+                times["fit"] += t1 - t0
+                times["cloud"] += t2 - t1
+                break  # portfolio replaces the q_points loop
+
+            if cfg.coego_n_coop > 1:
+                # cooperative partial optimization for high dimensions
+                # (ref: coego.rs; the per-iteration activity was sampled
+                # above, before surrogate training)
+                from .coego import coego_optimize_infill
+
+                starts_np = starts.double().cpu().numpy()
+                xb, yb, cb = state.best()
+                xk_np, fk = coego_optimize_infill(
+                    self, models, (xb, yb, cb), state.activity,
+                    lambda: starts_np, xlimits[:, 0], xlimits[:, 1],
+                    crit_kwargs,
+                    cstr_tols=state.cstr_tol,
+                    fcstrs=fcstrs,
+                )
+                infill_value = float(-fk)
+            else:
+                xk, fk, _ = optimize_infill(
+                    models, starts, lo, hi, **crit_kwargs
+                )
+                packed = torch.cat([xk, fk.reshape(1)]).double().cpu()
+                xk_np = packed[:-1].numpy()
+                infill_value = float(-packed[-1])
+            t3 = clock()
+
+            if fcstrs:
+                # user function constraints join the optimization through
+                # a native derivative-free polish around the optimum
+                # (ref: cstr_funcs threading, solver_impl.rs:716-741;
+                # scaling solver_computations.rs:181-189)
+                stats = {}
+                xk_np = self._fcstr_polish(xk_np, models, fcstrs, cloud,
+                                           crit_kwargs, xlimits, stats)
+                times["polish"] += clock() - t3
+                times["polish_evals"] += stats["evals"]
 
             i_min = int(np.argmin(state.y_data[:, 0]))
             yk = virtual_point(
-                models, xk, self._tensor(state.y_data[i_min]),
-                strategy=qei,
+                models, self._tensor(xk_np),
+                self._tensor(state.y_data[i_min]), strategy=qei,
             )
-            x_dat.append(xk.double().cpu().numpy()[None, :])
+            x_dat.append(np.asarray(xk_np, dtype=float)[None, :])
             y_dat.append(yk.double().cpu().numpy()[None, :])
-            t3 = clock()
+            t4 = clock()
             times["fit"] += t1 - t0
             times["cloud"] += t2 - t1
-            times["infill"] += t3 - t2
+            times["infill"] += t4 - t2
 
         self.last_times = times
         return np.vstack(x_dat), np.vstack(y_dat), infill_value
@@ -979,12 +1061,78 @@ class EgorSolver:
         )
         return state
 
-    def _fcstr_polish(self, *args, **kwargs):
-        raise _not_ported(
-            "the derivative-free polish for host-callback function "
-            "constraints",
-            "native Nelder-Mead polish for host-callback constraints",
+    def _fcstr_polish(self, xk: np.ndarray, models, fcstrs, cloud,
+                      crit_kwargs: dict, xlimits: np.ndarray,
+                      stats: Optional[dict] = None) -> np.ndarray:
+        """Native derivative-free local polish honoring user function
+        constraints g_i(x) <= cstr_tol (host callbacks cannot enter the
+        device optimizer). Surrogate constraints stay active via their
+        scaled means (ref: InfillOptProblem, solver_infill_optim.rs).
+
+        Each Nelder-Mead evaluation is one posterior evaluation on the
+        solver's device and one host read of the packed (objective,
+        constraint means); the penalized function asks for the objective
+        and every surrogate constraint at the same point, which reuse that
+        one read (the values are the same). ``stats`` (a dict) receives the
+        evaluations made (``evals``), which is also the polish's count of
+        host reads."""
+        from ..native import minimize_dfo_constrained
+        from .infill_optim import eval_infill_and_cstrs
+
+        n_cstr = crit_kwargs["n_cstr"]
+        scale_cstr_np = crit_kwargs["scale_cstr"].double().cpu().numpy()
+
+        # scale for the function constraints: max |g| over the scaling
+        # cloud (ref: solver_computations.rs:181-189)
+        cloud_np = cloud.double().cpu().numpy()
+        cloud_np = cloud_np[:: max(1, cloud_np.shape[0] // 100)]
+        fvals = self._eval_fcstrs(fcstrs, cloud_np)
+        scale_fc = np.maximum(np.max(np.abs(fvals), axis=0), 1e-12)
+
+        last = {"x": None, "vals": None, "evals": 0}
+
+        def obj_and_cstrs(x):
+            """(objective, surrogate constraint means) at x, as numpy; the
+            last point's values are kept."""
+            if last["x"] is not None and np.array_equal(last["x"], x):
+                return last["vals"]
+            o, m = eval_infill_and_cstrs(
+                models, self._tensor(x), crit_kwargs["fmin"],
+                crit_kwargs["scale_infill"], crit_kwargs["scale_wb2"],
+                crit_kwargs["cstr_tols"],
+                crit=crit_kwargs["crit"],
+                cstr_infill=crit_kwargs["cstr_infill"],
+                feasibility=crit_kwargs["feasibility"],
+            )
+            vals = torch.cat([o.reshape(1), m.reshape(-1)]).double().cpu()
+            last.update(x=np.array(x), vals=vals.numpy(),
+                        evals=last["evals"] + 1)
+            return last["vals"]
+
+        def fun(x):
+            return float(obj_and_cstrs(x)[0])
+
+        cstr_list = []
+        for i in range(n_cstr):
+            def surr_c(x, _i=i):
+                # target g <= 0 unshifted; tol is acceptance slack only
+                # (ref: optimizers/optimizer.rs:108, see infill_optim)
+                return float(obj_and_cstrs(x)[1 + _i]) / scale_cstr_np[_i]
+
+            cstr_list.append(surr_c)
+        for j, fc in enumerate(fcstrs):
+            def user_c(x, _fc=fc, _s=scale_fc[j]):
+                return float(_fc(torch.as_tensor(x))) / _s
+
+            cstr_list.append(user_c)
+
+        x_pol, _ = minimize_dfo_constrained(
+            fun, cstr_list, np.asarray(xk, dtype=float), xlimits[:, 0],
+            xlimits[:, 1], max_eval=400, n_penalty_rounds=3,
         )
+        if stats is not None:
+            stats["evals"] = last["evals"]
+        return x_pol
 
     @staticmethod
     def _impute_failures(state: EgorState, y_new: np.ndarray) -> np.ndarray:

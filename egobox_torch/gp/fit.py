@@ -15,8 +15,11 @@
   mask whose inactive bounds collapse to the init value;
 - ``mask`` fits the active rows of a padded design exactly;
 - ``subsample_warmstart`` runs the multi-fidelity recipe: multistart fits on
-  ``sub_draws`` random subsamples, then a polish of every candidate on the
-  full data, best final likelihood wins.
+  ``sub_draws`` random subsamples (and one of ``subsample_warmstart2``
+  points), then a polish of every candidate on the full data, best final
+  likelihood wins; with ``rank_warmstart`` the optima of one subsample's
+  multistart are ranked on a larger subsample first (``_warmstart_theta``)
+  and the winner alone is polished.
 
 Every random draw of a fit (the subsample permutations and the maximin-LHS
 restart seeds) comes from one ``FitDraws`` built by ``_fit_draws(seed)``;
@@ -26,6 +29,7 @@ tests replace that function to hand in JAX's draws.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -248,6 +252,52 @@ def lanes_per_chunk(n: int, ls_batch: int, element_size: int) -> int:
     return max(1, _LANES_BYTES // lane)
 
 
+def _lane_optima(corr, trend, x_lanes, y_lanes, std_lanes, mask_lanes,
+                 inits, lo_l, up_l, *, w_star, nugget, shared: bool,
+                 max_iters: int, ls_batch: int, graph_safe: bool = False):
+    """The bounded L-BFGS of every lane of a stack of restarts on the
+    likelihood: ``inits`` / ``lo_l`` / ``up_l`` (L, dim) in log10(theta),
+    ``y_lanes`` (L, n, 1) and ``std_lanes`` (L,) per lane, ``x_lanes`` /
+    ``mask_lanes`` one design for every lane (``shared``) or one per lane.
+    The stack advances in chunks of ``lanes_per_chunk`` lanes, one lockstep
+    L-BFGS after the other. Returns each lane's end point and objective,
+    (L, dim) and (L,)."""
+    n = y_lanes.shape[-2]
+    chunk = lanes_per_chunk(n, ls_batch, y_lanes.element_size())
+    xs, funs = [], []
+    for s in range(0, inits.shape[0], chunk):
+        if chunk == 1 and not graph_safe:
+            # one restart: the one-theta objective and L-BFGS, as lane
+            # after lane has always run
+            neg_rlf_theta = make_neg_reduced_likelihood(
+                corr, trend, x_lanes if shared else x_lanes[s],
+                y_lanes[s], std_lanes[s:s + 1], w_star, nugget,
+                mask_lanes if shared else mask_lanes[s])
+            lane = minimize_lbfgsb(
+                lambda tt: neg_rlf_theta(10.0**tt), inits[s], lo_l[s],
+                up_l[s], max_iters=max_iters, ls_batch=ls_batch,
+                final_grad=False,
+            )
+            xs.append(lane.x[None])
+            funs.append(lane.fun.reshape(1))
+            continue
+        sl = slice(s, s + chunk)
+        neg_rlf_theta = make_neg_reduced_likelihood(
+            corr, trend, x_lanes if shared else x_lanes[sl],
+            y_lanes[sl], std_lanes[sl], w_star, nugget,
+            mask_lanes if shared else mask_lanes[sl])
+        lanes = minimize_lbfgsb(
+            lambda tt: neg_rlf_theta(10.0**tt), inits[sl], lo_l[sl],
+            up_l[sl], max_iters=max_iters, ls_batch=ls_batch,
+            final_grad=False, graph_safe=graph_safe,
+        )
+        xs.append(lanes.x)
+        funs.append(lanes.fun)
+    xs = xs[0] if len(xs) == 1 else torch.cat(xs)
+    funs = funs[0] if len(funs) == 1 else torch.cat(funs)
+    return xs, funs
+
+
 def output_model(models: GpModel, j: int) -> GpModel:
     """Output ``j`` of a stacked container, as ``fit_gp_core`` returns it."""
     return dataclasses.replace(models, **{
@@ -357,38 +407,10 @@ def fit_gp_outputs(
         std_lanes = y_std[:, None].expand(n_lead, k).reshape(-1)
         x_lanes = per_lane(x_norm, m_out * k)
         mask_lanes = per_lane(mask, m_out * k)
-        chunk = lanes_per_chunk(n, ls_batch, x.element_size())
-        xs, funs = [], []
-        for s in range(0, shape[0], chunk):
-            if chunk == 1 and not graph_safe:
-                # one restart: the one-theta objective and L-BFGS, as lane
-                # after lane has always run
-                neg_rlf_theta = make_neg_reduced_likelihood(
-                    corr, trend, x_lanes if single else x_lanes[s],
-                    y_lanes[s], std_lanes[s:s + 1], w_star, nugget,
-                    mask_lanes if single else mask_lanes[s])
-                lane = minimize_lbfgsb(
-                    lambda tt: neg_rlf_theta(10.0**tt), inits[s], lo_l[s],
-                    up_l[s], max_iters=max_iters, ls_batch=ls_batch,
-                    final_grad=False,
-                )
-                xs.append(lane.x[None])
-                funs.append(lane.fun.reshape(1))
-                continue
-            sl = slice(s, s + chunk)
-            neg_rlf_theta = make_neg_reduced_likelihood(
-                corr, trend, x_lanes if single else x_lanes[sl],
-                y_lanes[sl], std_lanes[sl], w_star, nugget,
-                mask_lanes if single else mask_lanes[sl])
-            lanes = minimize_lbfgsb(
-                lambda tt: neg_rlf_theta(10.0**tt), inits[sl], lo_l[sl],
-                up_l[sl], max_iters=max_iters, ls_batch=ls_batch,
-                final_grad=False, graph_safe=graph_safe,
-            )
-            xs.append(lanes.x)
-            funs.append(lanes.fun)
-        xs = xs[0] if len(xs) == 1 else torch.cat(xs)
-        funs = funs[0] if len(funs) == 1 else torch.cat(funs)
+        xs, funs = _lane_optima(
+            corr, trend, x_lanes, y_lanes, std_lanes, mask_lanes, inits,
+            lo_l, up_l, w_star=w_star, nugget=nugget, shared=single,
+            max_iters=max_iters, ls_batch=ls_batch, graph_safe=graph_safe)
         best = torch.argmin(funs.reshape(n_lead, k), dim=1)
         xs = xs.reshape(n_lead, k, dim)
         theta_opt = 10.0 ** xs[torch.arange(n_lead, device=x.device), best]
@@ -412,6 +434,70 @@ def fit_gp_outputs(
     )
 
 
+def _warmstart_theta(
+    x_sub: torch.Tensor,  # (m, nx) fit subsample
+    y_sub: torch.Tensor,  # (m, 1)
+    x_rank: torch.Tensor,  # (r, nx) ranking subsample (r >= m)
+    y_rank: torch.Tensor,  # (r, 1)
+    theta0: torch.Tensor,
+    bounds_lo: torch.Tensor,
+    bounds_up: torch.Tensor,
+    draws: FitDraws,
+    *,
+    corr: str,
+    trend: str,
+    kpls_dim: Optional[int],
+    n_start: int,
+    max_iters: int,
+    nugget: float,
+    ls_batch: int = 0,
+) -> torch.Tensor:
+    """Multi-fidelity warm start with candidate ranking: the multistart MLE
+    on the m-point subsample (theta0 and ``n_start`` maximin-LHS seeds as
+    one stack of lockstep lanes, in the chunks the subsample's size sets),
+    then every lane's optimum re-ranked by its exact reduced likelihood on
+    the larger r-point subsample (one stack of Grams), the winner returned.
+    The subsample likelihood misranks theta basins; ranking on more data
+    before the full-data polish commits to one fixes that, for (1 +
+    n_start) O(r^3) forwards. Nothing is read on the host."""
+    dim = theta0.shape[0]
+
+    def norm(x, y):
+        x_mean, x_std = torch.mean(x, dim=0), torch.std(x, dim=0)
+        x_std = torch.where(x_std <= 0, torch.ones_like(x_std), x_std)
+        y_mean, y_std = torch.mean(y, dim=0), torch.std(y, dim=0)
+        y_std = torch.where(y_std <= 0, torch.ones_like(y_std), y_std)
+        return (x - x_mean) / x_std, (y - y_mean) / y_std, y_std
+
+    xs_norm, ys_norm, ys_std = norm(x_sub, y_sub)
+    xr_norm, yr_norm, yr_std = norm(x_rank, y_rank)
+
+    w_sub = w_rank = None
+    if kpls_dim is not None:
+        w_sub = pls_rotations(x_sub, y_sub, kpls_dim)
+        w_rank = pls_rotations(x_rank, y_rank, kpls_dim)
+
+    lo = torch.log10(bounds_lo)
+    up = torch.log10(bounds_up)
+    t0 = torch.log10(theta0)
+    seeds = draws.lhs_seeds(n_start, dim, x_sub.dtype, x_sub.device)
+    inits = torch.cat([t0[None, :], lo[None, :] + seeds * (up - lo)[None, :]])
+    k = inits.shape[0]
+    t_opt, _ = _lane_optima(
+        corr, trend, xs_norm, ys_norm[None].expand((k,) + ys_norm.shape),
+        ys_std.expand(k), None, inits, lo.expand(k, dim), up.expand(k, dim),
+        w_star=w_sub, nugget=nugget, shared=True, max_iters=max_iters,
+        ls_batch=ls_batch)
+    thetas = 10.0**t_opt  # (1 + n_start, dim)
+
+    rlfs, _ = reduced_likelihood(
+        corr, trend, xr_norm, yr_norm[None].expand((k,) + yr_norm.shape),
+        yr_std.expand(k), thetas, w_rank, nugget)
+    rlfs = torch.where(torch.isfinite(rlfs), rlfs,
+                       torch.full_like(rlfs, -torch.inf))
+    return thetas.index_select(0, torch.argmax(rlfs).reshape(1))[0]
+
+
 def _fit_mf_fused(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -433,28 +519,36 @@ def _fit_mf_fused(
     grad_probes: int,
     polish_tr: bool = False,
     sub_draws: int = 1,
+    sub_m2: int = 0,
 ) -> GpModel:
     """The multi-fidelity recipe: ``sub_draws`` random ``sub_m``-point
-    subsamples each get a multistart fit; every candidate theta is then
-    polished on the full data (``polish_iters`` iterations, trust-region
-    when ``polish_tr``) and the best final likelihood wins."""
+    subsamples, and with ``sub_m2`` one more draw of ``sub_m2`` points (a
+    second fidelity), each get a multistart fit; every candidate theta is
+    then polished on the full data (``polish_iters`` iterations,
+    trust-region when ``polish_tr``) and the best final likelihood wins.
+    The draws are taken subsample after subsample: its permutation, then
+    its fit's restart seeds, the ``sub_m2`` draw last."""
     n = x.shape[0]
-    sub_mask = torch.ones((sub_m,), dtype=torch.bool, device=x.device)
 
-    def subfit():
-        idx = draws.permutation(n, x.device)[:sub_m]
+    def subfit(m):
+        idx = draws.permutation(n, x.device)[:m]
         m0 = fit_gp_core(
-            x[idx], y[idx], sub_mask, theta0, bounds_lo, bounds_up, active,
+            x[idx], y[idx], torch.ones((m,), dtype=torch.bool,
+                                       device=x.device),
+            theta0, bounds_lo, bounds_up, active,
             draws, corr=corr, trend=trend, kpls_dim=kpls_dim,
             n_start=n_start, max_iters=max_iters, fixed=False,
             nugget=nugget,
         )
         return torch.clamp(m0.theta, bounds_lo, bounds_up)
 
-    if sub_draws == 1:
-        theta_w = subfit()
+    if sub_draws == 1 and not sub_m2:
+        theta_w = subfit(sub_m)
     else:
-        theta_w = torch.stack([subfit() for _ in range(sub_draws)])
+        cands = [subfit(sub_m) for _ in range(sub_draws)]
+        if sub_m2:
+            cands.append(subfit(sub_m2))
+        theta_w = torch.stack(cands)
 
     full_mask = torch.ones((n,), dtype=torch.bool, device=x.device)
     return fit_gp_core(
@@ -502,23 +596,30 @@ def fit_gp(
     type (float64 on the CPU, float32 on CUDA). ``theta_init``/``theta_bounds`` accept
     scalars or per-dim arrays; dim = kpls_dim or nx.
 
-    ``subsample_warmstart=m`` (with ``sub_draws``, ``polish_iters``,
-    ``polish_tr``): the multi-fidelity recipe of ``_fit_mf_fused``.
-    ``grad_probes=p``: squared-exponential fits estimate the gradient's
-    trace term with p fixed Rademacher probes. ``polish_residual``: route
-    the polish through the residual-reuse L-BFGS.
+    ``subsample_warmstart=m`` (with ``sub_draws``, ``subsample_warmstart2``,
+    ``polish_iters``, ``polish_tr``): the multi-fidelity recipe of
+    ``_fit_mf_fused``; ``subsample_warmstart2=m2`` adds one draw of m2
+    points to the candidates. ``rank_warmstart=r`` (with
+    ``subsample_warmstart``) takes ``_warmstart_theta`` instead: the
+    multistart on one m-point subsample (at least 3 seeds and 8
+    iterations), its optima ranked on an r-point subsample (r = max(r, m),
+    at most n), the winner polished on the full data (the residual route,
+    unless ``polish_residual`` says otherwise); ``sub_draws`` and
+    ``subsample_warmstart2`` are then ignored with a warning, as egobox_tpu
+    ignores them there. ``grad_probes=p``: squared-exponential fits
+    estimate the gradient's trace term with p fixed Rademacher probes.
+    ``polish_residual``: route the polish through the residual-reuse
+    L-BFGS.
 
     A non-finite likelihood is retried with a 100x larger nugget, twice;
     then ``GpFitError`` is raised. ``ls_batch > 1`` takes the speculative
-    line search (optim/lbfgsb.py). ``mesh``, ``rank_warmstart`` and
-    ``subsample_warmstart2`` are not ported and raise.
+    line search (optim/lbfgsb.py). ``mesh`` is not ported and raises.
     """
-    for name, value in (("mesh", mesh), ("rank_warmstart", rank_warmstart),
-                        ("subsample_warmstart2", subsample_warmstart2)):
-        if value:
-            raise NotImplementedError(
-                f"egobox_torch: fit_gp({name}=...) is not ported"
-            )
+    if mesh is not None:
+        raise NotImplementedError(
+            "egobox_torch: fit_gp(mesh=...), the fit sharded over several "
+            "devices, is not ported (ROADMAP Queue 1: parallel)"
+        )
     x = as_tensor(x, device=device)
     dtype, device = x.dtype, x.device
     y = as_tensor(y, dtype=dtype, device=device).to(device)
@@ -567,7 +668,34 @@ def fit_gp(
         and n > subsample_warmstart
         and bool(torch.all(mask))
     )
-    polish_residual = bool(polish_residual)
+    auto_polish_residual = polish_residual
+    polish_residual = False
+    if use_mf_recipe and rank_warmstart:
+        if sub_draws > 1 or subsample_warmstart2:
+            warnings.warn(
+                "fit_gp: sub_draws/subsample_warmstart2 are only honored "
+                "by the fused recipe, not with rank_warmstart: one "
+                "subsample draw", stacklevel=2,
+            )
+        # the subsample likelihood misranks theta basins: rank every
+        # restart on a larger subset before the polish commits to a basin
+        draws = _fit_draws(seed)
+        perm = draws.permutation(n, device)
+        idx = perm[:subsample_warmstart]
+        ridx = perm[:min(n, max(rank_warmstart, subsample_warmstart))]
+        theta_warm = _warmstart_theta(
+            x[idx], y[idx], x[ridx], y[ridx], theta0, bounds_lo, bounds_up,
+            draws, corr=corr, trend=trend, kpls_dim=kpls_dim,
+            n_start=max(n_start, 3), max_iters=max(max_iters, 8),
+            nugget=nugget,
+        )
+        theta0 = torch.clamp(theta_warm, bounds_lo, bounds_up)
+        polish_residual = True
+        use_mf_recipe = False
+        n_start = 0
+        max_iters = polish_iters
+    if auto_polish_residual is not None:
+        polish_residual = bool(auto_polish_residual)
 
     for _ in range(3):
         draws = _fit_draws(seed)
@@ -580,6 +708,7 @@ def fit_gp(
                 nugget=nugget, residual=polish_residual,
                 grad_probes=grad_probes, polish_tr=polish_tr,
                 sub_draws=int(sub_draws),
+                sub_m2=int(subsample_warmstart2 or 0),
             )
         else:
             # polish_tr applies to a polish phase only

@@ -884,6 +884,104 @@ def test_sgp_fit_takes_k1_at_every_cross_gram(dev):
     assert m64.z.dtype == torch.float64 and ck.launches == before
 
 
+# ---------------------------------------------------------------------------
+# CoEGO, the polish of host-callback constraints and the ranked warm start
+# ---------------------------------------------------------------------------
+
+
+def test_coego_iteration_on_the_card(dev):
+    """One CoEGO iteration at d=12 with partial theta tuning and the
+    improvement check, on the card (the host path): a new point in the
+    box, one fit per group."""
+    import os
+
+    import egobox_torch as egx
+
+    def sphere(x):
+        return np.sum(np.atleast_2d(x) ** 2, axis=1, keepdims=True)
+
+    os.environ["EGOR_COEGO_IMPROVEMENT_CHECK"] = "1"
+    try:
+        egor = egx.Egor([[-5.0, 5.0]] * 12, seed=1, coego_n_coop=3,
+                        infill_strategy=egx.InfillStrategy.EI)
+        egor.config.coego_partial_theta_tuning = True
+        res = egor.minimize(sphere, max_iters=1)
+    finally:
+        del os.environ["EGOR_COEGO_IMPROVEMENT_CHECK"]
+    assert egor.solver.last_models.theta.is_cuda
+    assert res.x_doe.shape == (14, 12)
+    assert np.all((res.x_doe >= -5.0) & (res.x_doe <= 5.0))
+    assert "fit" in egor.iteration_times[0]
+
+
+def test_fcstr_polish_on_the_card_matches_cpu(dev):
+    """The same surrogates (float64, fitted on the CPU) on the card and on
+    the CPU, the same start and cloud: the polished x within 1e-6 of the
+    box width, one host read per evaluation."""
+    from egobox_torch.ego import EgorConfig, EgorSolver
+    from egobox_torch.ego import infill_optim as tio
+    from egobox_torch.ego import surrogates as tsur
+
+    rng = np.random.default_rng(12)
+    xl = np.array([[0.0, 3.0], [0.0, 4.0]])
+    x = rng.uniform(xl[:, 0], xl[:, 1], (12, 2))
+    y = np.stack([-x[:, 0] - x[:, 1], x[:, 1] - 2.0 * x[:, 0] - 1.0], axis=1)
+    models = tsur.train_gp_surrogates(
+        torch.tensor(x), torch.tensor(y), None,
+        tsur.GpSpec(n_start=2, max_iters=10, nugget=1e-6), seed=3)
+    cloud = rng.uniform(xl[:, 0], xl[:, 1], (200, 2))
+
+    def host_cstr(p):
+        return float(np.asarray(p, dtype=float)[0]) - 2.1
+
+    def polish(device):
+        m = dataclasses.replace(models, **{
+            f.name: getattr(models, f.name).to(device)
+            for f in dataclasses.fields(models)
+            if isinstance(getattr(models, f.name), torch.Tensor)})
+        cl = torch.tensor(cloud, device=device)
+        tols = torch.tensor([1e-3], device=device, dtype=torch.float64)
+        s_inf, s_cstr, s_wb2 = tio.compute_scaling(m, cl, float(y[:, 0].min()),
+                                                   tols, crit="EI", n_cstr=1)
+        kw = dict(fmin=float(y[:, 0].min()), scale_infill=s_inf,
+                  scale_wb2=s_wb2, scale_cstr=s_cstr, cstr_tols=tols,
+                  crit="EI", cstr_strategy="MC", n_cstr=1,
+                  cstr_infill=False, feasibility=True, optimizer="COBYLA")
+        solver = EgorSolver(EgorConfig(n_cstr=1,
+                                       cstr_tol=np.array([1e-3, 1e-3])), xl,
+                            device=device, dtype=torch.float64)
+        stats = {}
+        xp = solver._fcstr_polish(np.array([2.6, 3.5]), m, [host_cstr], cl,
+                                  kw, xl, stats)
+        return xp, stats["evals"]
+
+    got, evals = polish(dev)
+    want, evals_cpu = polish("cpu")
+    assert np.all(np.abs(got - want) <= 1e-6 * (xl[:, 1] - xl[:, 0])), (
+        got, want)
+    assert evals > 0 and got[0] <= 2.1 + 1e-3
+
+
+def test_rank_warmstart_fit_launches_k1_at_the_ranking_shapes(dev):
+    """fit_gp(subsample_warmstart=1000, rank_warmstart=2000) at n=3000,
+    d=10, Matern 5/2, float32: K1 builds the 1000^2 Grams of the
+    multistart, the 2000^2 of the ranking and the 3000^2 of the polish."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-600.0, 600.0, (3000, 10))
+    s = np.sum(x**2 / 4000.0, axis=1)
+    y = s - np.prod(np.cos(x / np.sqrt(np.arange(1, 11))), axis=1) + 1.0
+    ck.launch_shapes.clear()
+    before = ck.launches
+    m = tgp.fit_gp(x.astype(np.float32), y.astype(np.float32),
+                   corr="matern52", n_start=1, max_iters=4, nugget=1e-3,
+                   subsample_warmstart=1000, rank_warmstart=2000,
+                   polish_iters=1, polish_tr=True, seed=0)
+    assert m.theta.is_cuda and np.isfinite(float(m.likelihood))
+    assert ck.launches > before
+    for shape in ((1000, 1000), (2000, 2000), (3000, 3000)):
+        assert ck.launch_shapes[shape] >= 1, dict(ck.launch_shapes)
+
+
 def test_a_capture_that_cannot_succeed_raises(dev):
     """An objective that reads a device value on the host (``.item()``)
     cannot be captured: the traced run raises when it captures, and does

@@ -2,7 +2,9 @@
 random inputs (exact), the traceable picker of the fused programs with
 JAX's draws (atol 1e-12), and every path the port leaves out: each raises
 ``NotImplementedError`` naming its ROADMAP item (the clustered surrogates,
-which raised until they were ported, run in test_torch_moe_egor.py).
+CoEGO, the portfolio and the host-callback constraints, which raised until
+they were ported, run in test_torch_moe_egor.py, test_torch_coego.py and
+test_torch_native.py).
 ``device="cpu"``.
 """
 
@@ -43,25 +45,10 @@ def xsinx(x):
 @pytest.mark.parametrize("build,item", [
     (lambda: EgorBatch([xsinx, xsinx], np.array([[0.0, 25.0]]),
                        device="cpu", mesh=object()), "parallel"),
-    (lambda: Egor([[0.0, 25.0]] * 4, coego_n_coop=2, seed=1, device="cpu")
-     .minimize(lambda x: np.sum(x**2, 1, keepdims=True), max_iters=1),
-     "CoEGO and the sigma-weight portfolio"),
-    (lambda: Egor([[0.0, 25.0]], seed=1, device="cpu").minimize(
-        xsinx, fcstrs=[lambda x: float(np.asarray(x)[0]) - 18.0],
-        max_iters=1), "native Nelder-Mead polish"),
-    (lambda: Egor([[0.0, 25.0]], seed=1, device="cpu").solver._fcstr_polish(),
-     "native Nelder-Mead polish"),
 ])
 def test_not_ported_paths_raise_with_their_roadmap_item(build, item):
     with pytest.raises(NotImplementedError, match=item):
         build()
-
-
-def test_portfolio_env_raises(monkeypatch):
-    monkeypatch.setenv("EGOR_USE_GP_VAR_PORTFOLIO", "1")
-    with pytest.raises(NotImplementedError, match="portfolio"):
-        Egor([[0.0, 25.0]], seed=1, device="cpu").minimize(xsinx,
-                                                           max_iters=1)
 
 
 def test_warm_refit_n_start_zero_is_refused():

@@ -36,16 +36,23 @@ class _JaxDraws:
                                                     device=device)
 
 
-def _inject_jax_draws(monkeypatch, seed, n, sub_draws, n_start, dim):
+def _inject_jax_draws(monkeypatch, seed, n, sub_draws, n_start, dim,
+                      sub_m2=False):
     """The subsample permutations and LHS seeds of egobox_tpu's
-    multi-fidelity recipe (gp/fit.py _fit_mf_fused key stream)."""
+    multi-fidelity recipe (gp/fit.py _fit_mf_fused key stream; with
+    ``sub_m2`` its second-fidelity draw last; ``sub_draws=1`` is also the
+    stream of the rank_warmstart recipe, whose seeds are max(n_start, 3))."""
     key = jax.random.key(seed)
     ksub, key = jax.random.split(key)
-    if sub_draws == 1:
+    if sub_draws == 1 and not sub_m2:
         pkeys, lkeys = [ksub], [key]
     else:
         dkeys = jax.random.split(ksub, 2 * sub_draws)
-        pkeys, lkeys = dkeys[:sub_draws], dkeys[sub_draws:]
+        pkeys, lkeys = list(dkeys[:sub_draws]), list(dkeys[sub_draws:])
+        if sub_m2:
+            k2d, k2f = jax.random.split(jax.random.fold_in(ksub, 7))
+            pkeys.append(k2d)
+            lkeys.append(k2f)
     perms = [np.asarray(jax.random.permutation(k, n)) for k in pkeys]
     lhs = [np.asarray(jax_maximin_lhs(k, n_start, dim, False, 5,
                                       jnp.float64)) for k in lkeys]

@@ -134,11 +134,15 @@ def test_nonfinite_likelihood_raises_gp_fit_error():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(rank_warmstart=500),
-                                dict(subsample_warmstart2=50),
+                                dict(rank_warmstart=120),
+                                dict(subsample_warmstart2=90),
                                 dict(ls_batch=4)])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, monkeypatch):
     x, y = _data(20, 2, 9)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="parallel"):
+            tgp.fit_gp(x, y, device="cpu", **kw)
+        return
     if "ls_batch" in kw:
         # ported since this test was written: the speculative line search
         # fits to egobox_tpu's optimum (same nugget as the parity tests)
@@ -148,8 +152,56 @@ def test_unported_options_raise(kw):
         np.testing.assert_allclose(mt.theta.numpy(), np.asarray(mj.theta),
                                    rtol=1e-5)
         return
-    with pytest.raises(NotImplementedError):
-        tgp.fit_gp(x, y, device="cpu", **kw)
+    # ported since: the ranked warm start (a 60-point multistart, its
+    # optima ranked on 120 points) and the second-fidelity draw (two
+    # 60-point draws and one of 90), polished on 240 points, fit to
+    # egobox_tpu's model with its draws handed in (the tolerances of
+    # _assert_same_model)
+    from test_torch_fit import _inject_jax_draws
+
+    x, y = _data(240, 3, 10)
+    rank = "rank_warmstart" in kw
+    common = dict(corr="matern52", n_start=1, max_iters=4, nugget=1e-3,
+                  subsample_warmstart=60, polish_iters=2, seed=3,
+                  sub_draws=1 if rank else 2, **kw)
+    _inject_jax_draws(monkeypatch, 3, 240, common["sub_draws"],
+                      3 if rank else 1, 3, sub_m2=not rank)
+    mt = tgp.fit_gp(x, y, device="cpu", **common)
+    mj = jgp.fit_gp(x, y, **common)
+    _assert_same_model(mt, mj, x[:15] + 0.01)
+
+
+@pytest.mark.parametrize("kpls", [False, True])
+def test_warmstart_theta_matches_jax(kpls):
+    """The ranked warm start alone: a 1 + 3 restart multistart on 100 points
+    (egobox_tpu's LHS seeds handed in), every optimum ranked on 200 points;
+    the winner's theta rtol 1e-5 (nugget 1e-6)."""
+    from egobox_tpu.doe.lhs import maximin_lhs as jax_maximin_lhs
+    from egobox_tpu.gp import fit as jfit
+    from egobox_torch.gp import fit as tfit
+    from test_torch_fit import _JaxDraws
+
+    import jax
+
+    x, y = _data(200, 4, 12)
+    y = y[:, None]
+    dim = 2 if kpls else 4
+    key = jax.random.key(4)
+    seeds = np.asarray(jax_maximin_lhs(key, 3, dim, False, 5, jnp.float64))
+    kw = dict(corr="matern52", trend="constant",
+              kpls_dim=2 if kpls else None, n_start=3, max_iters=8,
+              nugget=1e-6)
+    theta0 = np.full(dim, 0.1)
+    lo, up = np.full(dim, 1e-2), np.full(dim, 1e1)
+    want = jfit._warmstart_theta(
+        jnp.asarray(x[:100]), jnp.asarray(y[:100]), jnp.asarray(x),
+        jnp.asarray(y), jnp.asarray(theta0), jnp.asarray(lo),
+        jnp.asarray(up), key, **kw)
+    t = torch.from_numpy
+    got = tfit._warmstart_theta(
+        t(x[:100]), t(y[:100]), t(x), t(y), t(theta0), t(lo), t(up),
+        _JaxDraws([], [seeds]), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
 def test_input_validation():
