@@ -106,10 +106,28 @@ Phases (any failure raises and the script exits non-zero):
    draw) and the slice's three draws at seeds 1-3 (likelihood at most
    0.5 % below the default's, Q2 >= 0.98 for the default and the ranked
    fit, float32 against float64), K1's launches by shape and K2's counted
-   from 0 around each fit.
+   from 0 around each fit;
+15. dist (``dist_phase``): the distributed GP (``egobox_torch.parallel``)
+   at tools/prof_dist20k.py's recipe, n=20 000, d=10, float32: (a)
+   ``gp.fit_gp(x, y, mesh=<one NCCL rank>, subsample_warmstart=2000,
+   polish_iters=2, grad_probes=64)`` with the squared exponential and (b)
+   with Matern 5/2 (the exact adjoint; K1 builds every 20 000^2 row block
+   and the 20 000 x 512 prediction Gram), each returning a DistGpModel
+   that predicts on 512 more points, at seeds 0 (warm-up) and 1: fit,
+   warm start, polish and predict seconds, seconds per distributed
+   likelihood and gradient, peak memory, K1 launches by shape, the
+   likelihood within 1e-3 of a float64 recomputation of it, mean and
+   variance within 1e-3 std(y) / sigma^2 of the materialized GpModel at
+   the same theta, holdout Q2; (c) 4 gloo ranks spawned on the card (n=4
+   096, Matern 5/2, 16 panels): likelihood, gradient and predictions
+   within 1e-4 of the one-rank path, K1 on each rank's row blocks held
+   against the plain version; (d) ``EgorBatch(mesh=)`` over 8 quadratics
+   on the one-rank mesh (every proposal within 1e-8 of the run without a
+   mesh) and on the 4 ranks (within 1e-8 of the run on the same 4 blocks
+   of lanes), the objective called on rank 0 only.
 
-``--phases kernels,slice,egor,moe,sgp,hd`` runs a subset after the build
-(and then prints neither the kernels line nor the result line).
+``--phases kernels,slice,egor,moe,sgp,hd,dist`` runs a subset after the
+build (and then prints neither the kernels line nor the result line).
 
 Every Egor phase prints its seconds per EGO iteration (per phase on the
 unfused path, per kind of graph call on the fused one, per chunk on the
@@ -118,9 +136,9 @@ PyTorch's sync debug mode reports), the graphs captured, their capture
 seconds, the most memory their pool held, the graphs dropped, and the
 replays per iteration.
 
-Phases 6-14 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
+Phases 6-15 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
 ``gp.fit_sgp`` / ``SparseGpMix`` / ``gp.fit_gp`` with no device
-(the card). It prints one JSON line describing the kernels (with each one's bound: the
+(the card; phase 15 with the mesh's, the card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
 as its last line, ``{"ok": true, "device": {...}}``. Needs no network and
@@ -130,6 +148,7 @@ imports no JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -1869,7 +1888,376 @@ def hd_phase(torch, egx, ck, chk):
     return out
 
 
-PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd")
+# the distributed phase (``dist``): tools/prof_dist20k.py's recipe on the
+# port: n = 20 000 Griewank points on +-600, d = 10, float32, nugget 1e-3,
+# fit_gp(mesh=<one NCCL rank>, subsample_warmstart=2000, polish_iters=2,
+# grad_probes=64) (Hutchinson for the squared exponential; Matern 5/2
+# takes the exact adjoint), predict on 512 more points; the distributed
+# likelihood at theta* within 1e-3 of a float64 recomputation of it, the
+# mean and variance within 1e-3 std(y) and 1e-3 sigma^2 of the
+# materialized GpModel at the same theta. (c) 4 gloo ranks sharing the
+# card, n = 4 096, Matern 5/2, bp from pick_panel_size (16 panels): the
+# likelihood, gradient and predictions within 1e-4 of the one-rank path.
+# (d) EgorBatch over tests/test_batch.py:44-62's 8 quadratics, 8
+# iterations, on the one-rank mesh and on the 4 ranks.
+DIST_N, DIST_Q, DIST_N4, DIST_RANKS = 20_000, 512, 4096, 4
+DIST_FIT_KW = dict(nugget=1e-3, subsample_warmstart=2000, polish_iters=2,
+                   grad_probes=64)
+DIST_LKH_RTOL, DIST_SERVE_TOL, DIST_RANKS_RTOL = 1e-3, 1e-3, 1e-4
+DIST_BATCH_ATOL = 1e-8
+
+
+def dist_data(n, seed):
+    """(x, y) as float32 numpy: n training points and DIST_Q more."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-600.0, 600.0, (n + DIST_Q, DIM))
+    return x.astype(np.float32), griewank(x).astype(np.float32)
+
+
+@contextlib.contextmanager
+def timed_calls(torch, mod, names):
+    """Every call of ``mod.<name>`` timed (device-synchronized seconds,
+    appended to log[name]) while the block runs."""
+    saved = {k: getattr(mod, k) for k in names}
+    log = {k: [] for k in names}
+
+    def wrap(k, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            log[k].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for k, fn in saved.items():
+        setattr(mod, k, wrap(k, fn))
+    try:
+        yield log
+    finally:
+        for k, fn in saved.items():
+            setattr(mod, k, fn)
+
+
+def dist_fit_run(torch, ck, mesh, corr, seed):
+    """One (a) / (b) run: the distributed fit and predict, timed and
+    counted, then its gates."""
+    from egobox_torch import gp
+    from egobox_torch import parallel as P
+    from egobox_torch.gp import fit as gfit
+    from egobox_torch.parallel import dist_fit, dist_model
+
+    x, y = dist_data(DIST_N, seed)
+    xq = torch.tensor(x[DIST_N:], device=DEV)
+    yq = torch.tensor(y[DIST_N:], device=DEV)
+    x, y = x[:DIST_N], y[:DIST_N]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    with timed_calls(torch, gfit, ["fit_gp"]) as warm, \
+            timed_calls(torch, dist_model, ["realize_dist_model"]) as real, \
+            timed_calls(torch, dist_fit, ["dist_likelihood_parts",
+                                          "dist_grad_theta"]) as evals:
+        t0 = time.perf_counter()
+        model = gp.fit_gp(x, y, corr=corr, mesh=mesh, seed=seed,
+                          **DIST_FIT_KW)
+        lkh = float(model.likelihood)  # host sync
+        fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean, var = model.predict_valvar(xq)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = ck.launches
+    shapes = dict(ck.launch_shapes)
+    if not isinstance(model, P.DistGpModel) or not np.isfinite(lkh):
+        raise RuntimeError(f"dist {corr} seed {seed}: {type(model)} "
+                           f"likelihood {lkh}")
+    theta = model.theta
+
+    # the same distributed likelihood in float64 at theta*
+    x64 = torch.tensor(x, dtype=torch.float64, device=DEV)
+    y64 = torch.tensor(y, dtype=torch.float64, device=DEV)
+    lkh64 = float(P.reduced_likelihood_distributed(
+        mesh, x64, y64, theta.double(), corr=corr,
+        nugget=DIST_FIT_KW["nugget"]))
+    del x64, y64
+    rel = abs(lkh - lkh64) / abs(lkh64)
+    # the materialized model at the same theta
+    mat = gp.fit_gp(x, y, corr=corr, mesh=mesh, mesh_materialize=True,
+                    theta_init=theta.cpu().numpy(), theta_fixed=True,
+                    nugget=DIST_FIT_KW["nugget"])
+    mean_m, var_m = gp.predict_valvar(mat, xq)
+    del mat
+    std_y, s2 = float(np.std(y, ddof=1)), float(model.sigma2)
+    mean_err = float(torch.max(torch.abs(mean - mean_m))) / std_y
+    var_err = float(torch.max(torch.abs(var - var_m))) / s2
+    q2 = 1.0 - float(torch.sum((yq.double() - mean.double()) ** 2)
+                     / torch.sum((yq.double() - yq.double().mean()) ** 2))
+    n_lik, n_grad = len(evals["dist_likelihood_parts"]), len(
+        evals["dist_grad_theta"])
+    out = dict(
+        fit_s=fit_s, warm_start_s=sum(warm["fit_gp"]),
+        realize_s=sum(real["realize_dist_model"]),
+        polish_s=fit_s - sum(warm["fit_gp"]) - sum(real["realize_dist_model"]),
+        likelihood_evals=n_lik, gradient_evals=n_grad,
+        likelihood_eval_s=_med(evals["dist_likelihood_parts"]),
+        gradient_eval_s=_med(evals["dist_grad_theta"]),
+        predict_s=pred_s, peak_gib=peak, likelihood=lkh, likelihood64=lkh64,
+        likelihood_rel=rel, mean_err_std=mean_err, var_err_sigma2=var_err,
+        q2=q2, theta=theta.tolist(), k1_launches=launches,
+        k1_by_shape={f"{a}x{b}": c for (a, b), c in sorted(shapes.items())})
+    print(f"dist {corr} seed {seed}: fit {fit_s!r} s (warm start "
+          f"{out['warm_start_s']!r} s, distributed polish "
+          f"{out['polish_s']!r} s, realize {out['realize_s']!r} s); "
+          f"{n_lik} likelihood evaluations of {out['likelihood_eval_s']!r} s "
+          f"and {n_grad} gradients of {out['gradient_eval_s']!r} s "
+          f"(medians); predict 512 {pred_s!r} s; peak {peak!r} GiB; "
+          f"likelihood {lkh!r} (float64 {lkh64!r}, rel {rel!r}); mean, "
+          f"variance against the materialized model {mean_err!r} std(y), "
+          f"{var_err!r} sigma2; holdout Q2 {q2!r}; K1 launches {launches} "
+          f"by shape {out['k1_by_shape']}", flush=True)
+    if not rel <= DIST_LKH_RTOL:
+        raise RuntimeError(f"dist {corr} seed {seed}: likelihood rel "
+                           f"{rel} > {DIST_LKH_RTOL}")
+    if not (mean_err <= DIST_SERVE_TOL and var_err <= DIST_SERVE_TOL):
+        raise RuntimeError(f"dist {corr} seed {seed}: against the "
+                           f"materialized model {mean_err}, {var_err}")
+    return out, model, xq
+
+
+def dist_k1_checks(torch, ck, model, xq):
+    """K1 at the shapes (b) launched it (the 20 000^2 row block of the
+    Gram, the 20 000 x 512 cross Gram of the prediction) against the plain
+    version on (b)'s inputs (the 4 ranks check theirs); the 20 000^2
+    launch timed beside its bound."""
+    xn = model.x_norm_feed.contiguous()
+    xqn = ((xq - model.x_mean) / model.x_std).contiguous()
+    th = model.theta.contiguous()
+    worst = 0.0
+    for what, x1, x2 in (("20000x20000", xn[torch.randperm(
+            DIST_N, device=DEV)], xn), ("20000x512", xn, xqn)):
+        x1 = x1.contiguous()
+        worst = max(worst, _k1_check(
+            torch, f"dist {what}", ck.corr_cross_tile("matern52", x1, x2, th),
+            ck.corr_cross_plain("matern52", x1, x2, th)))
+    x1 = xn.clone()  # another tensor: the general launch, as the fit's
+    ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", x1, xn, th),
+                 reps=3, batch=5)
+    plain_ms = time_ms(torch, lambda: ck.corr_cross_plain("matern52", x1,
+                                                          xn, th),
+                       reps=3, batch=1)
+    bound_ms, bound_by = bound(4 * (2 * DIST_N * DIM + DIM + DIST_N**2),
+                               DIST_N**2 * (8 * DIM + 1))
+    print(f"dist K1: at (b)'s shapes against the plain "
+          f"version max abs err {worst!r} (atol {K1_ATOL}); 20000x20000 "
+          f"general launch {ms!r} ms (plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms by {bound_by})", flush=True)
+    return dict(max_abs_err=worst, ms_20000x20000=ms,
+                plain_ms_20000x20000=plain_ms,
+                bound_ms_20000x20000=bound_ms)
+
+
+def quad_centers():
+    return np.arange(8, dtype=float) * 2.0 + 4.0
+
+
+def quad_batch(x):  # (8, 1) -> (8, 1)
+    quad_batch.calls += 1
+    return np.sum((x - quad_centers()[:, None]) ** 2, axis=1, keepdims=True)
+
+
+def dist_egor_batch(egx, mesh=None):
+    """tests/test_batch.py:44-62's 8 quadratics, 8 iterations, on the card
+    (float64 by config.egor_dtype): the run's seconds, every proposal,
+    x_opt, and the objective's calls in this process."""
+    from egobox_torch.ego.config import GpConfig
+
+    xl = np.broadcast_to(np.array([[0.0, 25.0]]), (8, 1, 2))
+    quad_batch.calls = 0
+    t0 = time.perf_counter()
+    res = egx.EgorBatch(quad_batch, xl, mesh=mesh, seed=5, n_start=4,
+                        gp_config=GpConfig(n_start=2,
+                                           max_eval=10)).minimize(8)
+    x_opt = np.stack([r.x_opt for r in res])[:, 0]
+    if not np.all(np.abs(x_opt - quad_centers()) < 1.0):
+        raise RuntimeError(f"dist EgorBatch: x_opt {x_opt.tolist()}, "
+                           f"|x_opt - c| >= 1")
+    return dict(s=time.perf_counter() - t0, calls=quad_batch.calls,
+                x_doe=np.stack([r.x_doe for r in res]), x_opt=x_opt)
+
+
+def dist_at_theta(torch, mesh, inp, dtype):
+    """(c)'s work on ``mesh`` in ``dtype``: the distributed likelihood and
+    its gradient at inp's theta, the model realized there and its mean
+    and variance on inp's query points; numpy out, and the model."""
+    from egobox_torch import parallel as P
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=mesh.device)
+
+    x, y, theta = t(inp["x"]), t(inp["y"]), t(inp["theta"])
+    f, g = P.make_neg_rlf_distributed(mesh, x, y, corr="matern52",
+                                      nugget=DIST_FIT_KW["nugget"])
+    v, res = f(torch.log10(theta))
+    grad = g(torch.log10(theta), res)
+    del res
+    model = P.realize_dist_model(mesh, x, y, theta, corr="matern52",
+                                 nugget=DIST_FIT_KW["nugget"])
+    mean, var = model.predict_valvar(t(inp["xq"]))
+    return dict(lik=-float(v), grad=grad.cpu().numpy(),
+                mean=mean.cpu().numpy(), var=var.cpu().numpy()), model
+
+
+def dist_ranks_worker(rank, world_size, inp):
+    """One of the gloo ranks sharing the card ((c) and (d)); numpy out."""
+    import torch
+
+    from egobox_torch import parallel as P
+    from egobox_torch.ops import corr_kernel as ck
+
+    egx = import_port()
+    mesh = P.make_mesh(world_size, axis="rows")
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f32, model = dist_at_theta(torch, mesh, inp, torch.float32)
+    torch.cuda.synchronize()
+    out = dict(s=time.perf_counter() - t0, f32=f32, bp=model.bp,
+               k1=ck.launches,
+               k1_by_shape={f"{a}x{b}": c for (a, b), c in
+                            sorted(ck.launch_shapes.items())})
+    # K1 at this rank's shapes, on its inputs, against the plain version
+    x1 = model.x_norm_feed.contiguous()
+    x = torch.tensor(inp["x"], device=mesh.device)
+    xn = ((x - model.x_mean) / model.x_std).contiguous()
+    th = model.theta.contiguous()
+    out["k1_err"] = _k1_check(
+        torch, f"rank {rank} {tuple(x1.shape)}x{tuple(xn.shape)}",
+        ck.corr_cross_tile("matern52", x1, xn, th),
+        ck.corr_cross_plain("matern52", x1, xn, th))
+    del model
+    out["f64"] = dist_at_theta(torch, mesh, inp, torch.float64)[0]
+    out["batch"] = dist_egor_batch(egx, mesh)
+    return out
+
+
+def dist_phase(torch, egx, ck):
+    """(a)-(d) above. The one-rank group (NCCL) is made after the earlier
+    phases and destroyed before the 4 gloo ranks start; their group ends
+    with them."""
+    from egobox_torch import parallel as P
+    from egobox_torch.parallel.launch import run_ranks
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parallel_ranks import lane_blocks
+
+    t_phase = time.perf_counter()
+    mesh = P.make_mesh(1, axis="rows")
+    out = {}
+    try:
+        for corr in ("squared_exponential", "matern52"):
+            runs = [dist_fit_run(torch, ck, mesh, corr, seed)
+                    for seed in (0, 1)]  # seed 0 the warm-up
+            out[corr] = [r[0] for r in runs]
+        model, xq = runs[1][1], runs[1][2]  # matern52, seed 1
+        if out["matern52"][1]["k1_launches"] <= 0:
+            raise RuntimeError("dist matern52: K1 was not launched")
+        out["k1"] = dist_k1_checks(torch, ck, model, xq)
+        theta = model.theta.cpu().numpy()
+        del model, runs
+
+        # (c)'s one-rank reference on its data at (b)'s theta*
+        x, y = dist_data(DIST_N4, 2)
+        inp = dict(x=x[:DIST_N4], y=y[:DIST_N4], xq=x[DIST_N4:], theta=theta)
+        one = {k: dist_at_theta(torch, mesh, inp, dt)[0]
+               for k, dt in (("f32", torch.float32), ("f64", torch.float64))}
+
+        # (d) without a mesh, on the one-rank mesh, and on 4 blocks of lanes
+        batch = dict(plain=dist_egor_batch(egx),
+                     mesh1=dist_egor_batch(egx, mesh))
+        with lane_blocks(DIST_RANKS):
+            batch["blocks"] = dist_egor_batch(egx)
+    finally:
+        mesh.close()
+
+    # (c) and (d) on 4 gloo ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = run_ranks(dist_ranks_worker, DIST_RANKS, (inp,), timeout=600)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - b)) / np.max(np.abs(b)))
+
+    # 4 ranks against one, in float64 and float32; the float32 gradient (an
+    # explicit float32 inverse, as egobox_tpu's) against float64, no worse
+    # than the one-rank path's
+    errs = {f"{k}_{dt}": rel(r0[dt][k], one[dt][k]) for dt in ("f64", "f32")
+            for k in ("lik", "grad", "mean", "var")}
+    grad32 = dict(ranks=rel(r0["f32"]["grad"], one["f64"]["grad"]),
+                  one=rel(one["f32"]["grad"], one["f64"]["grad"]))
+    same = all(r[dt][k] == r0[dt][k] if k == "lik" else
+               np.array_equal(r[dt][k], r0[dt][k])
+               for r in ranks for dt in ("f32", "f64")
+               for k in ("lik", "grad", "mean"))
+    print(f"dist (c): {DIST_RANKS} gloo ranks on the card, n={DIST_N4}, "
+          f"bp={r0['bp']}: {ranks_s!r} s for the group (float32 work "
+          f"{[r['s'] for r in ranks]} s per rank); against the one-rank path "
+          f"(relative) {errs}; the float32 gradient against float64: 4 "
+          f"ranks {grad32['ranks']!r}, one rank {grad32['one']!r}; the same "
+          f"on every rank: {same}; K1 launches per rank "
+          f"{[r['k1'] for r in ranks]} by shape {r0['k1_by_shape']}, "
+          f"against the plain version max abs err "
+          f"{max(r['k1_err'] for r in ranks)!r}", flush=True)
+    gated = {k: v for k, v in errs.items() if k != "grad_f32"}
+    if not same or max(gated.values()) > DIST_RANKS_RTOL or grad32[
+            "ranks"] > max(DIST_RANKS_RTOL, 2.0 * grad32["one"]):
+        raise RuntimeError(f"dist (c): 4 ranks against one {errs}, "
+                           f"float32 gradients against float64 {grad32}, "
+                           f"the same on every rank: {same}")
+    if min(r["k1"] for r in ranks) <= 0:
+        raise RuntimeError("dist (c): a rank launched no K1")
+
+    # (d): every proposal of the one-rank mesh equals the run without a
+    # mesh, and the 4 ranks' the run on the same 4 blocks of lanes
+    # (tests/torch_parallel_ranks.py lane_blocks); the objective ran on
+    # rank 0 only
+    def gap(a, b):
+        return float(np.max(np.abs(a["x_doe"] - b["x_doe"])))
+
+    d = dict(mesh1_vs_plain=gap(batch["mesh1"], batch["plain"]),
+             ranks_vs_blocks=max(gap(r["batch"], batch["blocks"])
+                                 for r in ranks),
+             ranks_vs_plain=gap(r0["batch"], batch["plain"]),
+             calls=[r["batch"]["calls"] for r in ranks],
+             plain_calls=batch["plain"]["calls"],
+             s={k: v["s"] for k, v in batch.items()},
+             rank_s=[r["batch"]["s"] for r in ranks])
+    print(f"dist (d) EgorBatch 8 quadratics, 8 iterations: proposals, max "
+          f"abs difference: one NCCL rank vs no mesh {d['mesh1_vs_plain']!r}"
+          f", 4 gloo ranks vs the 4-block run {d['ranks_vs_blocks']!r} (vs "
+          f"the unsplit run {d['ranks_vs_plain']!r}, not gated); objective "
+          f"calls per rank {d['calls']} (no mesh {d['plain_calls']}); "
+          f"seconds {d['s']}, per rank {d['rank_s']}", flush=True)
+    if not (d["mesh1_vs_plain"] <= DIST_BATCH_ATOL
+            and d["ranks_vs_blocks"] <= DIST_BATCH_ATOL):
+        raise RuntimeError(f"dist (d): proposals differ {d}")
+    if d["calls"] != [d["plain_calls"]] + [0] * (DIST_RANKS - 1):
+        raise RuntimeError(f"dist (d): objective calls {d['calls']}")
+    out.update(ranks=dict(errs=errs, grad32=grad32, s=ranks_s,
+                          k1=[r["k1"] for r in ranks],
+                          k1_by_shape=r0["k1_by_shape"],
+                          k1_err=max(r["k1_err"] for r in ranks)), batch=d)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"dist: phase {out['s']!r} s", flush=True)
+    return out
+
+
+PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd", "dist")
 
 
 def main():
@@ -1931,6 +2319,9 @@ def main():
     if "hd" in phases:
         hd = hd_phase(torch, egx, ck, chk)
         print(json.dumps({"hd": hd}), flush=True)
+    if "dist" in phases:
+        dist = dist_phase(torch, egx, ck)
+        print(json.dumps({"dist": dist}), flush=True)
     if phases != PHASES:
         return
 
@@ -1953,7 +2344,10 @@ def main():
              launches_sgp_fit_by_shape=sgp["matern52"]["shapes"],
              launches_hd_rank_fit=hd_rank["k1_launches"],
              launches_hd_rank_fit_by_shape=hd_rank["k1_by_shape"],
-             sgp=sgp["k1"], **k1),
+             launches_dist=dist["matern52"][1]["k1_launches"],
+             launches_dist_by_shape=dist["matern52"][1]["k1_by_shape"],
+             launches_dist_4_ranks=dist["ranks"]["k1"],
+             sgp=sgp["k1"], dist=dist["k1"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",
              replaces="egobox_tpu/ops/pallas_chol.py:147",

@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of egobox_tpu: dense kriging, the sparse GP (FITC /
 VFE), the mixture of GP experts (dense or sparse experts), the Egor
 optimizer, the user-facing ``Gpx`` / ``SparseGpx`` API with its sampling
-functions, and the ``gpqa`` quality report (``python -m
-egobox_torch.gpqa``).
+functions, the ``gpqa`` quality report (``python -m egobox_torch.gpqa``),
+and the distributed GP over the ranks of a ``torch.distributed`` group
+(``egobox_torch.parallel``, imported on demand).
 
 The port mirrors egobox_tpu's module layout and function names; egobox_tpu
 stays the reference it is tested against. This package imports neither jax

@@ -3,9 +3,10 @@ elsewhere: the port's ``GpModel`` (one model, or the surrogate container
 with a leading output axis) from the arrays of e.g. an egobox_tpu
 ``GpModel`` converted field by field with ``np.asarray``, an ``SgpModel``
 from those of egobox_tpu's sparse GP, a ``GaussianMixture`` and a
-``GpMixture`` (dense or sparse experts) from those of egobox_tpu's, and
+``GpMixture`` (dense or sparse experts) from those of egobox_tpu's,
 ``EgorState`` from the hot-start checkpoint payload (clusterings
-included)."""
+included), and a ``DistGpModel`` from the gathered arrays of
+egobox_tpu's, each rank keeping its rows."""
 
 from __future__ import annotations
 
@@ -142,3 +143,43 @@ def egor_state_from_dict(payload: dict) -> EgorState:
     (host float64 tensors, moved to the solver's device when used) and
     per-expert parameters included."""
     return EgorState.from_dict(payload)
+
+
+def dist_gp_model_from_numpy(fields: dict, mesh, corr: str, trend: str,
+                             bp: int, dtype=None):
+    """``DistGpModel`` on ``mesh`` from the gathered arrays of egobox_tpu's
+    (``np.asarray`` of each field: ``x_norm_feed``, ``l_feed``,
+    ``gamma_feed``, ``ft_feed`` in feed order, (n, ...); ``gram_chol``,
+    ``beta``, the normalization, ``theta``, ``w_star`` (None allowed),
+    ``sigma2``, ``likelihood``), realized on a mesh of the same size with
+    panel size ``bp``. Every rank calls it with the same arrays and keeps
+    its own feed rows, on the mesh's device in ``dtype`` (default: the
+    device's type). Raises ``ValueError`` when ``l_feed`` is not in the
+    block-cyclic feed layout of this mesh size and ``bp``."""
+    from .parallel import _comm
+    from .parallel.dist_chol import _check_shard, _local_indices
+    from .parallel.dist_model import DistGpModel
+
+    arrays = [f.name for f in dataclasses.fields(DistGpModel)
+              if f.name not in ("mesh", "bp", "corr", "trend")]
+    t = _tensors_from_numpy(
+        dataclasses.make_dataclass("DistFields", arrays), fields,
+        mesh.device, dtype, "dist_gp_model_from_numpy")
+    n = t["l_feed"].shape[0]
+    _check_shard(n, mesh.size, bp)
+    n_loc = n // mesh.size
+    rows = slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
+    for k in ("x_norm_feed", "gamma_feed", "l_feed", "ft_feed"):
+        t[k] = t[k][rows].contiguous()
+    # in the feed layout of (mesh.size, bp), row i of the block has no
+    # entry right of its global row gidx[i]; every rank raises if one sees
+    # a violation
+    _, gidx = _local_indices(n, mesh.size, bp, mesh.rank)
+    upper = (torch.arange(n, device=mesh.device)[None, :]
+             > torch.as_tensor(gidx, device=mesh.device)[:, None])
+    bad = torch.any(upper & (t["l_feed"] != 0)).to(t["l_feed"].dtype)
+    if bool(_comm.all_reduce(mesh, bad, "max")):
+        raise ValueError(
+            "dist_gp_model_from_numpy: l_feed is not in the block-cyclic "
+            f"feed layout of a {mesh.size}-rank mesh with bp={bp}")
+    return DistGpModel(**t, mesh=mesh, bp=bp, corr=corr, trend=trend)

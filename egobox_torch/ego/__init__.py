@@ -8,8 +8,9 @@ multistart infill optimizer, TREGO, mixed-integer folding and clustered
 (mixture-of-experts) surrogates, on the host path and as the fused
 clustered iteration; on the host path CoEGO (``ego.coego``), the
 sigma-weight portfolio (``ego.portfolio``) and function constraints that
-are host callbacks (polished by ``egobox_torch.native``). Not ported:
-``EgorBatch(mesh=)``.
+are host callbacks (polished by ``egobox_torch.native``);
+``EgorBatch(mesh=)`` splits its problems over the ranks of an
+``egobox_torch.parallel`` mesh.
 """
 
 from .batch import EgorBatch

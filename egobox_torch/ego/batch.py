@@ -12,8 +12,12 @@ WB2S infill, surrogate constraints (MC / UTB or cstr_infill), q_points = 1,
 continuous or mixed-integer variables (one XSpec list shared by every
 problem). Problems share nx, n_cstr and the iteration budget; xlimits may
 differ per problem. ``EGOR_USE_MAX_PROBA_OF_FEASIBILITY`` gives every
-problem its own feasibility-first switch. ``mesh`` (the problem axis over
-several devices) is not ported.
+problem its own feasibility-first switch. ``mesh`` (an
+``egobox_torch.parallel`` ``Mesh``) splits the problem axis over its
+ranks: every rank keeps the whole host state and draws every problem's
+draws as the run without a mesh does, runs the fused program on its
+contiguous block of the problems, and the proposals are gathered; only
+rank 0 calls the objective, and broadcasts its values.
 
 Divergence from the single-problem solver, as in egobox_tpu: the picker's
 LHS completion takes the first rows of one n_start-point maximin pool per
@@ -53,6 +57,10 @@ from .solver import (
 from .start_points import middle_picker_starts
 from .surrogates import GpSpec
 
+#: the inputs of the fused batch program with a leading lane axis
+_LANE_INPUTS = ("xp", "yp", "mask", "theta0s", "fit_seeds", "clouds",
+                "starts", "lo", "hi", "fmin", "feas_flags")
+
 
 class EgorBatch:
     """Batched Egor over B independent problems.
@@ -62,7 +70,10 @@ class EgorBatch:
     each mapping (n, nx) -> (n, 1 + n_cstr); numpy in, numpy out. The
     surrogates and the infill run on ``device`` (default: the GPU, and a
     host without one raises; ``"cpu"`` for the CPU) in ``dtype`` (default:
-    ``config.egor_dtype``).
+    ``config.egor_dtype``). With a ``mesh`` every rank of it builds the
+    solver and calls ``minimize``; B must be divisible by the mesh size,
+    the device defaults to the mesh's, and the objective runs on rank 0
+    only (its values are broadcast).
     """
 
     def __init__(
@@ -84,14 +95,19 @@ class EgorBatch:
         device=None,
         dtype=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "egobox_torch: EgorBatch(mesh=...), the problem axis over "
-                "several devices, is not ported (ROADMAP Queue 1: parallel)"
-            )
         from ..types import XSpec
         from .mixint import MixintContext, parse_xspecs
 
+        if mesh is not None:
+            from ..parallel.sharding import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError("EgorBatch: mesh must be an "
+                                "egobox_torch.parallel Mesh, got "
+                                f"{type(mesh).__name__}")
+            if device is None:
+                device = mesh.device
+        self._mesh = mesh
         self.device = resolve_device(device)
         self._dtype = dtype
         self._iter_dtype = egor_dtype(self.device, 0)
@@ -118,6 +134,10 @@ class EgorBatch:
             self._fobj_batched = None
             n_problems = len(self._fobjs)
         self.n_problems = n_problems
+        if mesh is not None and n_problems % mesh.size != 0:
+            raise ValueError(
+                f"EgorBatch: {n_problems} problems must be divisible by the "
+                f"{mesh.size}-rank mesh")
 
         xl = np.asarray(xlimits, dtype=float)
         if xl.ndim == 2:
@@ -204,9 +224,21 @@ class EgorBatch:
 
     # ------------------------------------------------------------------
 
-    def _eval(self, x: np.ndarray) -> np.ndarray:
-        """x (B, nx) continuous layout -> y (B, 1 + n_cstr); the objective
-        sees the folded / discrete space."""
+    def _from_rank0(self, fn, shape) -> np.ndarray:
+        """``fn()`` (float values of ``shape``); with a mesh, rank 0 calls
+        it and broadcasts the values, so the objective runs once."""
+        if self._mesh is None:
+            return fn()
+        from ..parallel import _comm
+
+        buf = torch.empty(shape, dtype=torch.float64,
+                          device=self._mesh.device)
+        if self._mesh.rank == 0:
+            buf = torch.as_tensor(
+                np.asarray(fn(), dtype=float).reshape(shape)).to(buf.device)
+        return _comm.broadcast(self._mesh, buf, 0).cpu().numpy()
+
+    def _call(self, x: np.ndarray) -> np.ndarray:
         xu = self._to_user(x)
         if self._fobj_batched is not None:
             y = np.asarray(self._fobj_batched(xu), dtype=float)
@@ -217,15 +249,58 @@ class EgorBatch:
         ]
         return np.stack(rows)
 
+    def _eval(self, x: np.ndarray) -> np.ndarray:
+        """x (B, nx) continuous layout -> y (B, 1 + n_cstr); the objective
+        sees the folded / discrete space."""
+        return self._from_rank0(
+            lambda: self._call(x), (self.n_problems, 1 + self.config.n_cstr))
+
     def _eval_doe(self, x: np.ndarray) -> np.ndarray:
         """x (B, n, nx) -> y (B, n, 1 + n_cstr)."""
-        if self._fobj_batched is not None:
-            cols = [self._eval(x[:, i]) for i in range(x.shape[1])]
-            return np.stack(cols, axis=1)
-        return np.stack([
-            np.atleast_2d(np.asarray(f(self._to_user(x[b])), dtype=float))
-            for b, f in enumerate(self._fobjs)
-        ])
+        def call():
+            if self._fobj_batched is not None:
+                return np.stack([self._call(x[:, i])
+                                 for i in range(x.shape[1])], axis=1)
+            return np.stack([
+                np.atleast_2d(np.asarray(f(self._to_user(x[b])),
+                                         dtype=float))
+                for b, f in enumerate(self._fobjs)
+            ])
+
+        return self._from_rank0(
+            call, (self.n_problems, x.shape[1], 1 + self.config.n_cstr))
+
+    def _run_program(self, key, statics, inputs):
+        """The fused program on ``inputs`` (leading lane axis); with a
+        mesh on this rank's contiguous block of the lanes, the outputs
+        gathered. The lanes are padded up to a multiple of the mesh size
+        (at least one per rank) with copies of the first lane, whose
+        outputs are dropped: the draws stay those of the run without a
+        mesh."""
+        def program(**kw):
+            return fused_select_point_batch(**kw, **statics)
+
+        mesh = self._mesh
+        if mesh is None:
+            return self.graphs.run(key, program, inputs, inputs["xp"].shape)
+        from ..parallel import _comm
+
+        lanes = inputs["xp"].shape[0]
+        width = -(-max(lanes, mesh.size) // mesh.size) * mesh.size
+        blk = width // mesh.size
+        start = mesh.rank * blk
+        local = {}
+        for name, v in inputs.items():
+            if name in _LANE_INPUTS and v is not None:
+                if width > lanes:
+                    v = torch.cat([v, v[:1].expand(
+                        (width - lanes,) + tuple(v.shape[1:]))])
+                v = v[start:start + blk].contiguous()
+            local[name] = v
+        packed, theta = self.graphs.run(key, program, local,
+                                        local["xp"].shape)
+        return (_comm.gather_rows(mesh, packed, width, start)[:lanes],
+                _comm.gather_rows(mesh, theta, width, start)[:lanes])
 
     def default_n_doe(self) -> int:
         n = self.config.n_doe
@@ -351,9 +426,7 @@ class EgorBatch:
         )
         key = ("batch", xp.shape, yp.shape[2], self.dtype,
                feas_flags is not None, tuple(sorted(statics.items())))
-        packed, theta = self.graphs.run(
-            key, lambda **kw: fused_select_point_batch(**kw, **statics),
-            inputs, xp.shape)
+        packed, theta = self._run_program(key, statics, inputs)
         arr = packed.double().cpu().numpy()  # the one host fetch
         x_new = self._cast(np.array(arr[:, :self.nx]))
 

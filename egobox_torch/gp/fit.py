@@ -580,6 +580,8 @@ def fit_gp(
     polish_iters: int = 3,
     rank_warmstart: Optional[int] = None,
     mesh=None,
+    dist_bp: Optional[int] = None,
+    mesh_materialize: bool = False,
     grad_probes: int = 0,
     polish_residual: Optional[bool] = None,
     polish_tr: bool = False,
@@ -587,7 +589,7 @@ def fit_gp(
     subsample_warmstart2: Optional[int] = None,
     ls_batch: int = 0,
     device=None,
-) -> GpModel:
+):
     """User-facing fit (ref: GpParams + Fit, gp/src/algorithm.rs:785-980).
 
     ``x`` (n, nx), ``y`` (n,) or (n, 1); tensors keep their device and
@@ -613,14 +615,36 @@ def fit_gp(
 
     A non-finite likelihood is retried with a 100x larger nugget, twice;
     then ``GpFitError`` is raised. ``ls_batch > 1`` takes the speculative
-    line search (optim/lbfgsb.py). ``mesh`` is not ported and raises.
+    line search (optim/lbfgsb.py).
+
+    ``mesh``: an ``egobox_torch.parallel`` ``Mesh``; every rank of it
+    calls ``fit_gp`` with the same data. The theta MLE (likelihood value
+    AND analytic gradient) runs on the row blocks (parallel/dist_fit.py:
+    block-cyclic Cholesky, row-block trace contraction; with
+    ``subsample_warmstart`` its warm start is the one-device multistart
+    on that many points, then ``polish_iters`` iterations on the whole
+    design), so no rank holds the (n, n) factorization. Requires a full
+    mask and n divisible by the mesh size (KPLS is supported);
+    ``dist_bp`` sets the Cholesky panel size. The result is a
+    ``DistGpModel`` (parallel/dist_model.py) whose factor, gamma and
+    whitened trend basis stay in row blocks, realized with up to 3 nugget
+    escalations (x100) before ``GpFitError``; predict / predict_var run
+    distributed too. ``mesh_materialize=True`` returns instead a plain
+    ``GpModel`` at the distributed theta (only sensible when (n, n) fits
+    one device). Numpy input goes to the mesh's device.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "egobox_torch: fit_gp(mesh=...), the fit sharded over several "
-            "devices, is not ported (ROADMAP Queue 1: parallel)"
-        )
+        from ..parallel.sharding import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError("fit_gp: mesh must be an egobox_torch.parallel "
+                            f"Mesh, got {type(mesh).__name__}")
+        if device is None:
+            device = mesh.device
     x = as_tensor(x, device=device)
+    if mesh is not None and x.device != mesh.device:
+        raise ValueError(f"fit_gp: x is on {x.device}, the mesh's rank "
+                         f"computes on {mesh.device}")
     dtype, device = x.dtype, x.device
     y = as_tensor(y, dtype=dtype, device=device).to(device)
     if y.ndim == 1:
@@ -661,6 +685,41 @@ def fit_gp(
 
     if nugget is None:
         nugget = 100.0 * torch.finfo(dtype).eps
+
+    if mesh is not None:
+        if not bool(torch.all(mask)):
+            raise ValueError(
+                "fit_gp(mesh=...) requires a full mask (no padding)")
+        if not theta_fixed:
+            from ..parallel.dist_fit import fit_theta_distributed
+
+            theta_dist, _ = fit_theta_distributed(
+                mesh, x, y, corr=corr, trend=trend,
+                theta0=None if theta_init is None and subsample_warmstart
+                else theta0,
+                theta_bounds=torch.stack([bounds_lo, bounds_up], dim=1),
+                max_iters=max_iters, nugget=nugget, bp=dist_bp,
+                subsample_warmstart=subsample_warmstart,
+                polish_iters=polish_iters, seed=seed, kpls_dim=kpls_dim,
+                grad_probes=grad_probes,
+            )
+            theta0 = torch.clamp(theta_dist, bounds_lo, bounds_up)
+            theta_fixed = True
+        if not mesh_materialize:
+            from ..parallel.dist_model import realize_dist_model
+
+            for _ in range(3):
+                dmodel = realize_dist_model(
+                    mesh, x, y, theta0, corr=corr, trend=trend,
+                    nugget=nugget, bp=dist_bp, kpls_dim=kpls_dim,
+                )
+                if bool(torch.isfinite(dmodel.likelihood)):
+                    return dmodel
+                nugget *= 100.0
+            raise GpFitError(
+                "distributed GP fit failed: likelihood non-finite after 3 "
+                f"nugget escalations (final nugget={nugget:.3g})"
+            )
 
     use_mf_recipe = bool(
         subsample_warmstart

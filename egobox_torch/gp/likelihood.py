@@ -191,9 +191,20 @@ def reduced_likelihood(
     ``y_std`` (b,), ``x_norm`` (b, n, nx) and ``mask`` (b, n) may then give
     each theta its own data.
     """
+    # no local name for R: the callee frees it after the factorization
+    return likelihood_from_r(
+        _build_r(corr, x_norm, theta, w_star, nugget, mask), trend, x_norm,
+        y_norm, y_std, mask)
+
+
+def likelihood_from_r(r: torch.Tensor, trend: str, x_norm: torch.Tensor,
+                      y_norm: torch.Tensor, y_std: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None):
+    """``reduced_likelihood`` from its regularized correlation matrix ``r``
+    (``_build_r``'s; consumed): the factorization, the GLS and the
+    likelihood."""
     n = x_norm.shape[-2]
     dtype = x_norm.dtype
-    r = _build_r(corr, x_norm, theta, w_star, nugget, mask)
     lead = r.shape[:-2]
 
     fx = trend_basis(trend, x_norm)

@@ -1,5 +1,6 @@
 """EgorBatch of egobox_torch: the port's side of tests/test_batch.py (the
-mesh test aside: ``mesh=`` is not ported). float64, ``device="cpu"``; the
+mesh test aside: ``mesh=`` runs on 4 gloo ranks in test_torch_parallel.py).
+float64, ``device="cpu"``; the
 gates are those of tests/test_batch.py at the same or a smaller depth.
 One problem in a batch equals the single-problem fused step on the same
 draws (x within 1e-6 of the box width: the same arithmetic, batched).

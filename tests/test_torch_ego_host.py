@@ -1,10 +1,11 @@
 """The host-side modules of egobox_torch's Egor loop against egobox_tpu's on
 random inputs (exact), the traceable picker of the fused programs with
-JAX's draws (atol 1e-12), and every path the port leaves out: each raises
-``NotImplementedError`` naming its ROADMAP item (the clustered surrogates,
-CoEGO, the portfolio and the host-callback constraints, which raised until
-they were ported, run in test_torch_moe_egor.py, test_torch_coego.py and
-test_torch_native.py).
+JAX's draws (atol 1e-12), and what the port left out: the clustered
+surrogates, CoEGO, the portfolio and the host-callback constraints, which
+raised until they were ported, run in test_torch_moe_egor.py,
+test_torch_coego.py and test_torch_native.py; EgorBatch(mesh=), ported
+since, runs in test_torch_parallel.py and here refuses a mesh that is not
+an egobox_torch.parallel Mesh.
 ``device="cpu"``.
 """
 
@@ -47,7 +48,9 @@ def xsinx(x):
                        device="cpu", mesh=object()), "parallel"),
 ])
 def test_not_ported_paths_raise_with_their_roadmap_item(build, item):
-    with pytest.raises(NotImplementedError, match=item):
+    # the parallel path is ported since (tests/test_torch_parallel.py):
+    # a mesh that is not an egobox_torch.parallel Mesh is refused
+    with pytest.raises(TypeError, match=f"egobox_torch.{item} Mesh"):
         build()
 
 

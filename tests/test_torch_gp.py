@@ -140,7 +140,9 @@ def test_nonfinite_likelihood_raises_gp_fit_error():
 def test_unported_options_raise(kw, monkeypatch):
     x, y = _data(20, 2, 9)
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="parallel"):
+        # ported since: the mesh must be an egobox_torch.parallel Mesh
+        # (tests/test_torch_parallel*.py fit on one)
+        with pytest.raises(TypeError, match="Mesh"):
             tgp.fit_gp(x, y, device="cpu", **kw)
         return
     if "ls_batch" in kw:
