@@ -126,8 +126,29 @@ Phases (any failure raises and the script exits non-zero):
    mesh) and on the 4 ranks (within 1e-8 of the run on the same 4 blocks
    of lanes), the objective called on rank 0 only.
 
-``--phases kernels,slice,egor,moe,sgp,hd,dist`` runs a subset after the
-build (and then prints neither the kernels line nor the result line).
+16. f32 (``f32_phase``): the port's float32 path against egobox_tpu's
+   float32 path, read from tests/data/f32_reference.npz
+   (tools/make_f32_reference.py; this script imports no JAX): (a) the
+   1024 x 1024 Matern 5/2 Gram (K1) against egobox_tpu's float32 Gram, the
+   likelihood and its adjoint at n=2 000 (squared exponential; Matern 5/2
+   with K1), the mean and variance of egobox_tpu's float32 fit carried over
+   by ``convert``, LogEI / EI / PoF over a grid of u (finite where
+   egobox_tpu's float32 LogEI is NaN), each within the float32 lane's
+   tolerance (tests/test_torch_f32_gp.py runs the same check on the CPU),
+   then K1 at every shape (a) launched it at against ``corr_cross_plain``
+   on (a)'s own inputs (atol 2e-6);
+   (b) bench.py's shipped fit (bench.py:275-277: squared exponential,
+   float32, the Hutchinson polish) on bench.py's own data, seed 1 as the
+   warm-up, then seeds 1-3: wall time and the deficit against bench.py's
+   GOLDEN_DIRECT_LKH, gate: the worst <= 1.0 % (bench.py QUALITY_TOL_PCT),
+   printed beside egobox_tpu's deficits of the same fit on a TPU
+   (BENCH_r05.json);
+   (c) G24 (UTB, the golden's configuration) with ``dtype=torch.float32``
+   at seed 42 (``--f32-g24-seeds 42,2,3`` for more), printed, not gated
+   (egobox_tpu's float32 misses the golden too; PERF.md).
+
+``--phases kernels,slice,egor,moe,sgp,hd,dist,f32`` runs a subset after
+the build (and then prints neither the kernels line nor the result line).
 
 Every Egor phase prints its seconds per EGO iteration (per phase on the
 unfused path, per kind of graph call on the fused one, per chunk on the
@@ -2257,19 +2278,263 @@ def dist_phase(torch, egx, ck):
     return out
 
 
-PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd", "dist")
+F32_FILE = ROOT / "tests" / "data" / "f32_reference.npz"
+F32_EPS = float(np.finfo(np.float32).eps)
+F32_NUGGET = 1e-3
+#: the tolerances of the float32 lane (tests/test_torch_f32_gp.py), which
+#: runs this same check on the CPU. Gram: a d=10 log-space sum rounds each
+#: term, exp carries it into r: 4 d eps32 absolute (K1's product form with
+#: ex2.approx is held to its plain version at 2e-6, inside it). Likelihood,
+#: adjoint, mean and variance: float32 rounding times the Gram's condition
+#: number, at most (1 + nugget) / nugget with the Gershgorin-scaled nugget
+#: (gp/likelihood.py _build_r).
+F32_GRAM_ATOL = 4 * 10 * F32_EPS
+F32_RTOL = 4 * F32_EPS * (1.0 + F32_NUGGET) / F32_NUGGET
+#: criteria: LogEI where egobox_tpu's float32 value is finite, 16 ulps (its
+#: erfc and log1p differ from the port's by an ulp or two, and log1mexp
+#: amplifies that by 1 / |w|); inside its NaN band against the port's own
+#: float64 value, the series' first dropped term (3.5e-6 at z = 9) times
+#: u^2 / |LogEI| <= 2, and 16 ulps: 1e-5; EI eps32 sigma absolute (its
+#: direct form cancels in the left tail on both sides) and 2 eps32 relative
+#: (the value's own rounding); PoF eps32 absolute
+F32_LOGEI_RTOL, F32_LOGEI_BAND_RTOL = 16 * F32_EPS, 1e-5
+#: bench.py:66 and :73: the converged full-data likelihoods of the shipped
+#: fit on bench.py's data, seeds 1-3, and the share it may fall below them
+GOLDEN_DIRECT_LKH = {1: 12311.2178, 2: 12226.0645, 3: 12379.1768}
+QUALITY_TOL_PCT = 1.0
+#: bench.py:275-277, the shipped fit (squared exponential, float32)
+BENCH_FIT_KW = dict(n_start=1, max_iters=4, nugget=1e-3,
+                    subsample_warmstart=2000, sub_draws=3, polish_iters=1,
+                    grad_probes=64, polish_tr=True)
+#: BENCH_r05.json's tail: egobox_tpu's deficits of the same fit on the same
+#: data on a TPU (float32), to the two decimals printed there
+REF_TPU_DELTA_PCT = {1: 0.19, 2: 0.49, 3: 0.39}
+F32_G24_SEEDS = (42,)
+
+
+def f32_reference_checks(torch, ck, ref, device):
+    """(a) of the f32 phase: the port's float32 results against
+    egobox_tpu's float32 results in ``ref`` (tests/data/f32_reference.npz,
+    tools/make_f32_reference.py) on ``device``: the 1024 x 1024 Matern 5/2
+    Gram (K1 on the card), the likelihood and its adjoint at n = 2 000
+    (squared exponential; Matern 5/2 with K1), the mean and variance of
+    egobox_tpu's fitted model carried over by ``convert``, and LogEI, EI
+    and PoF over a grid of u. Raises on a miss; returns the errors (each
+    over its tolerance's scale) and K1's launches."""
+    from egobox_torch import convert
+    from egobox_torch.ego import criteria as tc
+    from egobox_torch.gp import gp as tgp
+    from egobox_torch.gp import kernels as tk
+    from egobox_torch.gp import likelihood as tlk
+
+    def t(k):
+        return torch.from_numpy(ref[k]).to(device)
+
+    def check(what, err, tol):
+        if not err <= tol:
+            raise RuntimeError(f"f32 (a) {what}: {err!r} > {tol!r}")
+        out[what] = err
+
+    out = {}
+    k1_0 = ck.launches
+    with torch.no_grad():
+        gram = tk.corr_cross("matern52", t("gram_x1"), t("gram_x2"),
+                             t("gram_theta"))
+    rows = torch.from_numpy(ref["gram_rows"]).to(device)
+    check("gram_rows_max_abs_err", float(torch.max(torch.abs(
+        gram[rows] - t("gram_ref_rows")))), F32_GRAM_ATOL)
+    sums = torch.sum(gram.double(), dim=1)
+    check("gram_row_sums_max_abs_err_per_entry", float(torch.max(torch.abs(
+        sums - t("gram_ref_row_sums")))) / gram.shape[1], F32_GRAM_ATOL)
+    for corr in ("squared_exponential", "matern52"):
+        f = tlk.make_neg_reduced_likelihood(
+            corr, "constant", t("lik_x"), t("lik_y"), t("lik_y_std"), None,
+            F32_NUGGET, None, 0)
+        th = t(f"lik_theta_{corr}").clone().requires_grad_(True)
+        v = f(th)
+        v.backward()
+        v_ref = float(ref[f"lik_ref_neg_{corr}"])
+        g_ref = ref[f"lik_ref_grad_{corr}"]
+        check(f"likelihood_{corr}_rel_err",
+              abs(float(v.detach()) - v_ref) / abs(v_ref), F32_RTOL)
+        check(f"adjoint_{corr}_err_over_max",
+              float(np.max(np.abs(th.grad.cpu().numpy() - g_ref)))
+              / float(np.max(np.abs(g_ref))), F32_RTOL)
+    fields = {k[3:]: ref[k] for k in ref.files if k.startswith("gp_")
+              and not k.startswith("gp_ref_") and k not in ("gp_x", "gp_y",
+                                                            "gp_xq")}
+    fields["w_star"] = None
+    model = convert.gp_model_from_numpy(fields, "matern52", "constant",
+                                        device=device, dtype=torch.float32)
+    mean, var = tgp.predict_valvar(model, t("gp_xq"))
+    y_scale = float(np.max(np.abs(ref["gp_y"])))
+    check("predict_err_over_max_abs_y", float(np.max(np.abs(
+        mean.cpu().numpy() - ref["gp_ref_mean"]))) / y_scale, F32_RTOL)
+    check("variance_err_over_sigma2", float(np.max(np.abs(
+        var.cpu().numpy() - ref["gp_ref_var"]))) / float(ref["gp_sigma2"]),
+        F32_RTOL)
+    m, s2 = t("crit_mean"), t("crit_var")
+    fmin = torch.tensor(0.3, dtype=torch.float32, device=device)
+    log_ei = tc.log_ei(m, s2, fmin).cpu().numpy()
+    log_ei64 = tc.log_ei(m.double(), s2.double(),
+                         fmin.double()).cpu().numpy()
+    want = ref["crit_ref_log_ei"]
+    fin = np.isfinite(want)
+    check("log_ei_rel_err", float(np.max(np.abs(log_ei - want)[fin]
+                                         / np.abs(want[fin]))),
+          F32_LOGEI_RTOL)
+    if not np.all(np.isfinite(log_ei)):
+        raise RuntimeError("f32 (a): the port's float32 LogEI is not finite")
+    check("log_ei_nan_band_rel_err_vs_float64", float(np.max(
+        np.abs(log_ei - log_ei64)[~fin] / np.abs(log_ei64[~fin]),
+        initial=0.0)), F32_LOGEI_BAND_RTOL)
+    out["log_ei_reference_nan_at_u"] = ((0.3 - ref["crit_mean"][~fin])
+                                        / np.sqrt(2.5)).tolist()
+    sigma = float(np.sqrt(2.5))
+    ei_ref = ref["crit_ref_ei"]
+    check("ei_err_over_tolerance", float(np.max(np.abs(
+        tc.ei(m, s2, fmin).cpu().numpy() - ei_ref)
+        / (F32_EPS * sigma + 2 * F32_EPS * np.abs(ei_ref)))), 1.0)
+    check("pof_abs_err", float(np.max(np.abs(
+        tc.pof(m, s2).cpu().numpy() - ref["crit_ref_pof"]))), F32_EPS)
+    out["k1_launches"] = ck.launches - k1_0
+    return out
+
+
+def f32_k1_checks(torch, ck, ref, shapes, device=DEV):
+    """K1 at every shape of ``shapes`` (those (a) launched it at) against
+    its plain version on (a)'s own inputs: the 1024 x 1024 Gram's points
+    and theta (general launch), the likelihood's 2 000 points at its Matern
+    theta (symmetric launch, row sums). A shape (a) has no inputs for
+    raises. Returns the largest error."""
+    def t(k):
+        return torch.from_numpy(ref[k]).to(device)
+
+    x_lik = t("lik_x")
+    inputs = {
+        (len(ref["gram_x1"]), len(ref["gram_x2"])):
+            (t("gram_x1"), t("gram_x2"), t("gram_theta"), False),
+        (len(x_lik), len(x_lik)):
+            (x_lik, x_lik, t("lik_theta_matern52"), True),
+    }
+    worst = 0.0
+    for n1, n2 in shapes:
+        if (n1, n2) not in inputs:
+            raise RuntimeError(f"f32: K1 launched at {n1}x{n2}, a shape "
+                               "with no inputs to check it on")
+        x1, x2, th, sums = inputs[(n1, n2)]
+        got = ck.corr_cross_tile("matern52", x1, x2, th, row_sums=sums)
+        want = ck.corr_cross_plain("matern52", x1, x2, th, row_sums=sums)
+        if sums:
+            # the row sums of n2 entries, each within K1_ATOL
+            err = float(torch.max(torch.abs(got[1] - want[1])))
+            if not err <= n2 * K1_ATOL:
+                raise RuntimeError(f"K1 f32 shape {n1}x{n2}: row sums "
+                                   f"{err!r} > {n2 * K1_ATOL!r}")
+            got, want = got[0], want[0]
+        worst = max(worst, _k1_check(torch, f"f32 shape {n1}x{n2}", got,
+                                     want))
+    return worst
+
+
+def f32_bench_fits(torch, egx, ref):
+    """(b) of the f32 phase: bench.py's shipped fit on bench.py's own data
+    (the file's float32 x and y of seeds 1-3), on the card: seed 1 once as
+    the warm-up, then seeds 1-3, wall time (the data on the card before the
+    clock starts, a host read of the likelihood to stop it) and the deficit
+    ``100 (gold - lkh) / |gold|`` against bench.py's GOLDEN_DIRECT_LKH.
+    Gate: the worst deficit <= QUALITY_TOL_PCT."""
+    def fit(seed):
+        x = torch.from_numpy(ref[f"bench_x{seed}"]).to(DEV)
+        y = torch.from_numpy(ref[f"bench_y{seed}"]).to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = egx.gp.fit_gp(x, y, **BENCH_FIT_KW)
+        lkh = float(model.likelihood)  # host sync
+        wall = time.perf_counter() - t0
+        if not (model.theta.is_cuda and model.theta.dtype == torch.float32):
+            raise RuntimeError(f"f32 (b): the fit ran on {model.theta.device}"
+                               f" in {model.theta.dtype}")
+        return wall, lkh
+
+    warm_s, _ = fit(1)
+    runs = {}
+    for seed in (1, 2, 3):
+        wall, lkh = fit(seed)
+        gold = GOLDEN_DIRECT_LKH[seed]
+        delta = 100.0 * (gold - lkh) / abs(gold)
+        runs[seed] = dict(wall_s=wall, likelihood=lkh, golden=gold,
+                          quality_delta_pct=delta,
+                          egobox_tpu_tpu_delta_pct=REF_TPU_DELTA_PCT[seed])
+        print(f"f32 (b) bench.py's fit on bench.py's data, seed {seed}: "
+              f"{wall!r} s, likelihood {lkh!r} against {gold}: delta "
+              f"{delta!r} % (egobox_tpu on a TPU, BENCH_r05.json: "
+              f"{REF_TPU_DELTA_PCT[seed]} %)", flush=True)
+    worst = max(r["quality_delta_pct"] for r in runs.values())
+    walls = [r["wall_s"] for r in runs.values()]
+    print(f"f32 (b): warm-up {warm_s!r} s; wall {min(walls)!r} - "
+          f"{max(walls)!r} s; worst delta {worst!r} % (gate "
+          f"{QUALITY_TOL_PCT} %, bench.py)", flush=True)
+    if not worst <= QUALITY_TOL_PCT:
+        raise RuntimeError(f"f32 (b): worst delta {worst!r} % > "
+                           f"{QUALITY_TOL_PCT} %")
+    return dict(warmup_s=warm_s, runs=runs, worst_delta_pct=worst)
+
+
+def f32_phase(torch, egx, ck, g24_seeds=F32_G24_SEEDS):
+    """The float32 lane on the card: (a) ``f32_reference_checks`` against
+    egobox_tpu's float32 results and ``f32_k1_checks``, (b)
+    ``f32_bench_fits``, (c) G24 (UTB, the golden's configuration) with
+    ``dtype=torch.float32`` at ``g24_seeds``, printed beside the
+    reference's float32 landings (PERF.md; no gate: egobox_tpu misses the
+    golden in float32 too)."""
+    t_phase = time.perf_counter()
+    ref = np.load(F32_FILE)
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    a = f32_reference_checks(torch, ck, ref, DEV)
+    by_shape = {f"{n1}x{n2}": c
+                for (n1, n2), c in sorted(ck.launch_shapes.items())}
+    a["k1_by_shape"] = by_shape
+    if a["k1_launches"] <= 0:
+        raise RuntimeError("f32 (a): K1 was not launched")
+    a["k1_vs_plain_max_abs_err"] = f32_k1_checks(torch, ck, ref,
+                                                 list(ck.launch_shapes))
+    print(f"f32 (a) against egobox_tpu's float32 results: {a!r}", flush=True)
+    out = dict(a=a, b=f32_bench_fits(torch, egx, ref), g24={})
+    for seed in g24_seeds:
+        res, st = egor_run(
+            torch, egx, f"f32 (c) egor-g24-utb float32 seed {seed}",
+            lambda s=seed: egx.Egor(G24_BOX, q_optmod=2, dtype=torch.float32,
+                                    cstr_strategy=egx.ConstraintStrategy.UTB,
+                                    **dict(G24_KW, seed=s)),
+            g24, 30, dtype=torch.float32)
+        out["g24"][seed] = dict(x_opt=res.x_opt.tolist(),
+                                y_opt=res.y_opt.tolist(),
+                                wall_s=st["wall_s"])
+    out["s"] = time.perf_counter() - t_phase
+    print(f"f32: phase {out['s']!r} s", flush=True)
+    return out
+
+
+PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd", "dist", "f32")
 
 
 def main():
     """All phases with no argument (the contract's run); ``--phases
     moe,egor`` runs a subset after the build, and then prints no kernels
     line and no result line."""
-    phases = PHASES
-    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
-        phases = tuple(sys.argv[2].split(","))
-    elif len(sys.argv) != 1:
-        raise SystemExit("usage: chip_smoke.py [--phases "
-                         f"{','.join(PHASES)}]")
+    phases, g24_seeds = PHASES, F32_G24_SEEDS
+    args = sys.argv[1:]
+    while args:
+        if len(args) >= 2 and args[0] == "--phases":
+            phases = tuple(args[1].split(","))
+        elif len(args) >= 2 and args[0] == "--f32-g24-seeds":
+            g24_seeds = tuple(int(v) for v in args[1].split(","))
+        else:
+            raise SystemExit("usage: chip_smoke.py [--phases "
+                             f"{','.join(PHASES)}] [--f32-g24-seeds 42,2,3]")
+        args = args[2:]
     torch = device_phase()
     egx = import_port()
     from egobox_torch import native
@@ -2322,6 +2587,9 @@ def main():
     if "dist" in phases:
         dist = dist_phase(torch, egx, ck)
         print(json.dumps({"dist": dist}), flush=True)
+    if "f32" in phases:
+        f32 = f32_phase(torch, egx, ck, g24_seeds)
+        print(json.dumps({"f32": f32}), flush=True)
     if phases != PHASES:
         return
 
@@ -2347,6 +2615,10 @@ def main():
              launches_dist=dist["matern52"][1]["k1_launches"],
              launches_dist_by_shape=dist["matern52"][1]["k1_by_shape"],
              launches_dist_4_ranks=dist["ranks"]["k1"],
+             launches_f32=f32["a"]["k1_launches"],
+             launches_f32_by_shape=f32["a"]["k1_by_shape"],
+             f32_max_abs_err_vs_egobox_tpu=f32["a"]["gram_rows_max_abs_err"],
+             f32_max_abs_err=f32["a"]["k1_vs_plain_max_abs_err"],
              sgp=sgp["k1"], dist=dist["k1"], **k1),
         dict(name="factor_panel", route="cuda",
              source="egobox_torch/csrc/chol_panel.cu",

@@ -54,9 +54,11 @@ def egor_dtype(device, n: int) -> torch.dtype:
     the kernel. The EGO loop clusters its design around the optimum, the
     Gram's condition number reaches 1 / nugget, and in float32 the
     posterior mean then carries an error of the order of the constraint
-    tolerances (the G24 golden lands at -5.44 instead of -5.508 in
-    float32). Such designs are bound by launches, not by arithmetic, and
-    the card has a real FP64 rate. ``Egor(dtype=torch.float32)`` asks for
+    tolerances: egobox_tpu itself misses the G24 golden in float32
+    (-5.390 and -5.366 for -5.508 at seeds 42 and 2;
+    tools/f32_g24_compare.py, PERF.md).
+    Such designs are bound by launches, not by arithmetic, and the card
+    has a real FP64 rate. ``Egor(dtype=torch.float32)`` asks for
     float32, the type the K1 kernel builds large L1-family Grams in."""
     base = default_dtype(device)
     if base == torch.float32 and n < _EGOR_FLOAT64_BELOW:

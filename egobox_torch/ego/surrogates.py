@@ -45,7 +45,8 @@ class GpSpec:
     max_iters: int = 50
     #: jitter factor on R's diagonal; None takes 100 machine epsilons of
     #: the design's type (egobox_tpu fixes 100 x 2.2e-16, which is nothing
-    #: in the float32 the GPU computes in)
+    #: in the float32 the GPU computes in: its float32 Cholesky fails once
+    #: the design clusters near an optimum; tests/test_torch_f32_ego.py)
     nugget: Optional[float] = None
     #: speculative line-search width of the EGO-loop fits
     #: (optim/lbfgsb.py ls_batch); 0/1 = classic sequential backtracking

@@ -49,7 +49,23 @@ from .likelihood import (
     make_neg_rlf_residual_api,
     reduced_likelihood,
 )
-from .trends import TREND_NAMES, n_basis, trend_basis
+from .trends import TREND_NAMES, n_basis, trend_basis, trend_jacobian
+
+
+def kriging(x, y, **kwargs):
+    """Kriging convenience fit: constant trend and squared-exponential
+    kernel (ref alias: gp/src/algorithm.rs:200-207 ``Kriging<F>``)."""
+    kwargs.setdefault("corr", "squared_exponential")
+    kwargs.setdefault("trend", "constant")
+    return fit_gp(x, y, **kwargs)
+
+
+def sparse_kriging(x, y, **kwargs):
+    """SparseKriging convenience fit: squared-exponential sparse GP
+    (ref alias: gp/src/sparse_algorithm.rs:172-179)."""
+    kwargs.setdefault("corr", "squared_exponential")
+    return fit_sgp(x, y, **kwargs)
+
 
 __all__ = [
     "GpFitError",
@@ -73,6 +89,7 @@ __all__ = [
     "fit_sgp_core",
     "fitc_likelihood",
     "inner_params",
+    "kriging",
     "log_corr_cross",
     "make_neg_reduced_likelihood",
     "make_neg_rlf_residual_api",
@@ -94,7 +111,9 @@ __all__ = [
     "sgp_predict_var",
     "sgp_predict_var_gradients",
     "sgp_sample",
+    "sparse_kriging",
     "theta_bounds_heuristic",
     "trend_basis",
+    "trend_jacobian",
     "vfe_likelihood",
 ]

@@ -42,6 +42,17 @@ class GpModel:
     corr: str
     trend: str
 
+    # convenience accessors mirroring the reference API
+    @property
+    def n_train(self) -> torch.Tensor:
+        """The number of active training rows."""
+        return torch.sum(self.mask)
+
+    @property
+    def dims(self):
+        """(input dimension, output dimension)."""
+        return (self.x_norm.shape[-1], 1)
+
 
 def _xnorm(model: GpModel, x: torch.Tensor) -> torch.Tensor:
     return (x - model.x_mean) / model.x_std

@@ -20,11 +20,13 @@ analytic likelihood adjoint (port of egobox_tpu/gp/likelihood.py).
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..doe import threefry
 from ..ops.chol_kernel import PRECISIONS, cholesky_nan, panel_cholesky
 from .kernels import (_STACK_BUDGET, _l1_dphi, _log_corr_terms, _takes_k1,
                       corr_cross, corr_gram_row_sums)
@@ -275,14 +277,16 @@ def _sqexp_dphi(c, x_norm, theta, w_star):
     return -theta * (s @ (w_star**2))
 
 
+@functools.lru_cache(maxsize=4)
 def _rademacher_probes(n: int, probes: int, dtype, device) -> torch.Tensor:
-    """The fixed (n, probes) Rademacher probes of the stochastic gradient,
-    from a generator seeded with a constant: every gradient evaluation of a
-    fit sees the same estimate. torch's stream differs from JAX's
-    (key 0xE60B0); tests replace this function to inject JAX's probes."""
-    gen = torch.Generator().manual_seed(_PROBE_SEED)
-    z = torch.randint(0, 2, (n, probes), generator=gen)
-    return (2 * z - 1).to(dtype=dtype, device=device)
+    """The fixed (n, probes) Rademacher probes of the stochastic gradient:
+    egobox_tpu's, ``jax.random.rademacher(key(0xE60B0), (n, probes))``
+    (doe/threefry.py; its float32 draw for float32 data, its float64 draw
+    for float64), so every gradient evaluation of a fit sees the same
+    estimate as egobox_tpu's. Kept for the next call (read only)."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    z = threefry.rademacher(threefry.key(_PROBE_SEED), (n, probes), np_dtype)
+    return torch.from_numpy(z).to(device)
 
 
 def _sqexp_dphi_stoch(x_norm, w_star, theta, l_chol, gamma, sigma2_norm,

@@ -37,3 +37,8 @@ def n_basis(name: str, nx: int) -> int:
     if name == "quadratic":
         return 1 + nx + nx * (nx + 1) // 2
     raise ValueError(f"unknown trend: {name}")
+
+
+def trend_jacobian(name: str, x1: torch.Tensor) -> torch.Tensor:
+    """Jacobian of the basis at one point x1 (nx,) -> (p, nx)."""
+    return torch.func.jacfwd(lambda v: trend_basis(name, v[None, :])[0])(x1)

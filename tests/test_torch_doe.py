@@ -135,3 +135,42 @@ def test_full_factorial_and_random_objects():
         tdoe.Random(np.zeros(3), device="cpu")
     with pytest.raises(ValueError, match="xlimits"):
         tdoe.FullFactorial(np.zeros((2, 3)), device="cpu")
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["float32", "float64"])
+def test_threefry_stream_is_jaxs(x64):
+    """doe/threefry.py draws JAX's bits: keys, splits, fold_in, random
+    bits, uniforms, permutations, Rademacher draws and egobox_tpu's maximin
+    LHS, over seeds (0xE60B0 is the probes' key) and sizes, in the type of
+    each x64 mode (float32 off, as egobox_tpu runs on its accelerator;
+    float64 on)."""
+    from egobox_torch.doe import threefry as tf
+
+    np_dt, jdt = (np.float64, jnp.float64) if x64 else (np.float32,
+                                                         jnp.float32)
+    with jax.enable_x64(x64):
+        # a seed above 32 bits keeps its high word only with x64 on
+        for seed in (0, 42, 0xE60B0, 2**31 - 1) + ((2**40 + 5,) if x64
+                                                    else ()):
+            k = jax.random.key(seed)
+            kd = tf.key(seed)
+            assert np.array_equal(kd, jax.random.key_data(k))
+            assert np.array_equal(tf.split(kd, 5), jax.random.key_data(
+                jax.random.split(k, 5)))
+            assert np.array_equal(tf.fold_in(kd, 7), jax.random.key_data(
+                jax.random.fold_in(k, 7)))
+            assert np.array_equal(tf.random_bits(kd, 32, (7, 3)),
+                                  jax.random.bits(k, (7, 3), jnp.uint32))
+            assert np.array_equal(tf.uniform(kd, (11, 4), np_dt),
+                                  jax.random.uniform(k, (11, 4), jdt))
+            assert np.array_equal(tf.rademacher(kd, (50, 8), np_dt),
+                                  jax.random.rademacher(k, (50, 8),
+                                                        dtype=jdt))
+            for n in (1, 8, 2000, 10_000):
+                assert np.array_equal(tf.permutation(kd, n),
+                                      jax.random.permutation(k, n))
+            for ns, nx in ((1, 10), (3, 2), (20, 3)):
+                got = tf.maximin_lhs(kd, ns, nx, np_dt)
+                assert got.dtype == np_dt
+                assert np.array_equal(got, jlhs.maximin_lhs(
+                    k, ns, nx, False, 5, jdt))

@@ -56,8 +56,27 @@ def _inject_jax_draws(monkeypatch, seed, n, sub_draws, n_start, dim,
     perms = [np.asarray(jax.random.permutation(k, n)) for k in pkeys]
     lhs = [np.asarray(jax_maximin_lhs(k, n_start, dim, False, 5,
                                       jnp.float64)) for k in lkeys]
-    monkeypatch.setattr(tfit, "_fit_draws",
-                        lambda s: _JaxDraws(perms, lhs))
+    monkeypatch.setattr(tfit, "_recipe_draws",
+                        lambda s, *a: _JaxDraws(perms, lhs))
+
+
+@pytest.mark.parametrize("kw", [dict(sub_draws=1), dict(sub_draws=2),
+                                dict(sub_draws=2, subsample_warmstart2=150),
+                                dict(sub_draws=1, rank_warmstart=200)],
+                         ids=["one-draw", "two-draws", "second-fidelity",
+                              "ranked"])
+def test_subsample_recipes_draw_as_jax(kw):
+    """No draws handed in: the port's subsample recipes draw egobox_tpu's
+    threefry key stream (``gp.fit._recipe_draws``), so ``fit_gp(seed=5)``
+    fits egobox_tpu's model (the tolerances of ``_assert_same_model``)."""
+    x, y = _data(300, 3, 2)
+    x_test = np.random.default_rng(3).uniform(-2.0, 2.0, (25, 3))
+    common = dict(corr="matern52", n_start=1, max_iters=4, nugget=1e-3,
+                  subsample_warmstart=100, polish_iters=1, polish_tr=True,
+                  seed=5, **kw)
+    mt = tgp.fit_gp(x, y, device="cpu", **common)
+    mj = jgp.fit_gp(x, y, **common)
+    _assert_same_model(mt, mj, x_test)
 
 
 def test_multi_fidelity_recipe_matches_jax(monkeypatch):

@@ -206,6 +206,68 @@ def test_warmstart_theta_matches_jax(kpls):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
+def test_kriging_alias_matches_jax():
+    """``gp.kriging``: ``fit_gp`` with egobox_tpu's defaults, squared
+    exponential and a constant trend (a keyword overrides them)."""
+    x, y = _data(60, 2, 12)
+    x_test = np.random.default_rng(13).uniform(-2.0, 2.0, (10, 2))
+    mt = tgp.kriging(x, y, n_start=0, nugget=1e-6, device="cpu")
+    mj = jgp.kriging(x, y, n_start=0, nugget=1e-6)
+    assert (mt.corr, mt.trend) == (mj.corr, mj.trend) == (
+        "squared_exponential", "constant")
+    _assert_same_model(mt, mj, x_test)
+    mt = tgp.kriging(x, y, trend="linear", n_start=0, nugget=1e-6,
+                     device="cpu")
+    mj = jgp.kriging(x, y, trend="linear", n_start=0, nugget=1e-6)
+    assert mt.trend == mj.trend == "linear"
+    _assert_same_model(mt, mj, x_test)
+
+
+def test_sparse_kriging_alias_matches_jax(monkeypatch):
+    """``gp.sparse_kriging``: ``fit_sgp`` with the squared exponential,
+    from egobox_tpu's draws (tests/test_torch_sgp.py's problem and
+    tolerance)."""
+    from egobox_torch.gp import fit as tfit
+    from egobox_torch.gp import sgp as tsgp
+    from test_torch_sgp import _fit_problem, _JaxFitDraws, _JaxSgpDraws
+
+    monkeypatch.setattr(tsgp, "_sgp_draws", _JaxSgpDraws)
+    monkeypatch.setattr(tfit, "_fit_draws", _JaxFitDraws)
+    x, y, z = _fit_problem()
+    mt = tgp.sparse_kriging(x, y, z=z, n_start=2, seed=0, device="cpu")
+    mj = jgp.sparse_kriging(jnp.asarray(x), jnp.asarray(y), z=jnp.asarray(z),
+                            n_start=2, seed=0)
+    assert mt.corr == mj.corr == "squared_exponential"
+    np.testing.assert_allclose(float(mt.likelihood), float(mj.likelihood),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("trend", ["constant", "linear", "quadratic"])
+def test_trend_jacobian_matches_jax(trend):
+    """``gp.trends.trend_jacobian`` at one point, (p, nx), against
+    egobox_tpu's ``jax.jacfwd`` of the basis."""
+    from egobox_tpu.gp.trends import trend_jacobian as jax_jacobian
+
+    x1 = np.array([0.3, -1.2, 2.5])
+    got = tgp.trend_jacobian(trend, torch.from_numpy(x1))
+    want = np.asarray(jax_jacobian(trend, jnp.asarray(x1)))
+    assert got.shape == want.shape == (tgp.n_basis(trend, 3), 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-15, atol=0)
+
+
+def test_n_train_and_dims_match_jax():
+    """``GpModel.n_train`` (active rows of a padded design) and ``dims``."""
+    x, y = _data(30, 3, 14)
+    xp = np.concatenate([x, np.zeros((6, 3))])
+    yp = np.concatenate([y, np.zeros(6)])
+    mask = np.arange(36) < 30
+    kw = dict(n_start=0, max_iters=3, nugget=1e-6, mask=mask)
+    mt = tgp.fit_gp(xp, yp, device="cpu", **kw)
+    mj = jgp.fit_gp(xp, yp, **kw)
+    assert int(mt.n_train) == int(mj.n_train) == 30
+    assert mt.dims == mj.dims == (3, 1)
+
+
 def test_input_validation():
     x, y = _data(20, 2, 9)
     with pytest.raises(ValueError, match="multi-output"):
