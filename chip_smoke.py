@@ -147,8 +147,22 @@ Phases (any failure raises and the script exits non-zero):
    at seed 42 (``--f32-g24-seeds 42,2,3`` for more), printed, not gated
    (egobox_tpu's float32 misses the golden too; PERF.md).
 
-``--phases kernels,slice,egor,moe,sgp,hd,dist,f32`` runs a subset after
-the build (and then prints neither the kernels line nor the result line).
+17. cards (``cards_phase``): the distributed GP with one NCCL rank per
+   card, W = min(the host's cards, ``--cards``, default 4) ranks spawned by
+   ``run_ranks(backend="nccl")``, each printing its card (two ranks on one
+   card fail the phase): (e) the dist phase's n=20 000 data at a fixed
+   Matern 5/2 theta on the W ranks against the in-process one-rank mesh
+   (likelihood, gradient, mean, variance within 1e-4; the float32 gradient
+   against float64), K1 on each rank's row blocks against the plain
+   version and its launches by shape per rank; (g) ``EgorBatch(mesh=)``
+   over the 8 quadratics within 1e-8 of the run without a mesh on the same
+   W blocks of lanes; (f) with W >= 2, ``fit_gp(mesh=<W ranks>)`` at
+   n=40 000 under (b)'s gates, with its times and peak memory per rank. On
+   one card (f) says it needs 2 or more cards and does not run.
+
+``--phases kernels,slice,egor,moe,sgp,hd,dist,f32,cards`` runs a subset
+after the build (and then prints neither the kernels line nor the result
+line); ``--cards W`` caps the cards phase's ranks.
 
 Every Egor phase prints its seconds per EGO iteration (per phase on the
 unfused path, per kind of graph call on the fused one, per chunk on the
@@ -157,9 +171,9 @@ PyTorch's sync debug mode reports), the graphs captured, their capture
 seconds, the most memory their pool held, the graphs dropped, and the
 replays per iteration.
 
-Phases 6-15 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
+Phases 6-17 go through ``egobox_torch.Egor`` / ``EgorBatch`` / ``moe`` /
 ``gp.fit_sgp`` / ``SparseGpMix`` / ``gp.fit_gp`` with no device
-(the card; phase 15 with the mesh's, the card). It prints one JSON line describing the kernels (with each one's bound: the
+(the card; phases 15 and 17 with the mesh's, the rank's card). It prints one JSON line describing the kernels (with each one's bound: the
 least time the card could take for the same work, from the bytes it must
 move at 3.35 TB/s and the FP32 operations it must do at 67 TFLOP/s), then,
 as its last line, ``{"ok": true, "device": {...}}``. Needs no network and
@@ -322,6 +336,22 @@ def _k1_check(torch, what, got, ref):
     if not err <= K1_ATOL:
         raise RuntimeError(f"K1 {what}: max abs err {err:.3g} > {K1_ATOL}")
     return err
+
+
+def _k1_check_at(torch, ck, what, name, x1, x2, th, sums=False):
+    """K1 on (x1, x2, th), with row sums where ``sums``, against its plain
+    version on the same inputs: the Gram within K1_ATOL, each row sum of
+    n2 entries within n2 K1_ATOL."""
+    got = ck.corr_cross_tile(name, x1, x2, th, row_sums=sums)
+    want = ck.corr_cross_plain(name, x1, x2, th, row_sums=sums)
+    if sums:
+        n2 = x2.shape[0]
+        err = float(torch.max(torch.abs(got[1] - want[1])))
+        if not err <= n2 * K1_ATOL:
+            raise RuntimeError(f"K1 {what}: row sums {err!r} > "
+                               f"{n2 * K1_ATOL!r}")
+        got, want = got[0], want[0]
+    return _k1_check(torch, what, got, want)
 
 
 def k1_phase(torch, ck):
@@ -1961,18 +1991,20 @@ def timed_calls(torch, mod, names):
             setattr(mod, k, fn)
 
 
-def dist_fit_run(torch, ck, mesh, corr, seed):
-    """One (a) / (b) run: the distributed fit and predict, timed and
-    counted, then its gates."""
+def dist_fit_run(torch, ck, mesh, corr, seed, n=DIST_N, label="dist"):
+    """One (a) / (b) / cards (f) run: the distributed fit of n points and
+    predict, timed and counted, then its gates, and K1 at every shape the
+    run launched it at on this rank held against its plain version
+    (``dist_k1_checks``). Returns (numbers, model, x, xq) on the card."""
     from egobox_torch import gp
     from egobox_torch import parallel as P
     from egobox_torch.gp import fit as gfit
     from egobox_torch.parallel import dist_fit, dist_model
 
-    x, y = dist_data(DIST_N, seed)
-    xq = torch.tensor(x[DIST_N:], device=DEV)
-    yq = torch.tensor(y[DIST_N:], device=DEV)
-    x, y = x[:DIST_N], y[:DIST_N]
+    x, y = dist_data(n, seed)
+    xq = torch.tensor(x[n:], device=DEV)
+    yq = torch.tensor(y[n:], device=DEV)
+    x, y = x[:n], y[:n]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck.launches = 0
@@ -1994,7 +2026,7 @@ def dist_fit_run(torch, ck, mesh, corr, seed):
     launches = ck.launches
     shapes = dict(ck.launch_shapes)
     if not isinstance(model, P.DistGpModel) or not np.isfinite(lkh):
-        raise RuntimeError(f"dist {corr} seed {seed}: {type(model)} "
+        raise RuntimeError(f"{label} {corr} seed {seed}: {type(model)} "
                            f"likelihood {lkh}")
     theta = model.theta
 
@@ -2030,7 +2062,7 @@ def dist_fit_run(torch, ck, mesh, corr, seed):
         likelihood_rel=rel, mean_err_std=mean_err, var_err_sigma2=var_err,
         q2=q2, theta=theta.tolist(), k1_launches=launches,
         k1_by_shape={f"{a}x{b}": c for (a, b), c in sorted(shapes.items())})
-    print(f"dist {corr} seed {seed}: fit {fit_s!r} s (warm start "
+    print(f"{label} {corr} seed {seed}: fit {fit_s!r} s (warm start "
           f"{out['warm_start_s']!r} s, distributed polish "
           f"{out['polish_s']!r} s, realize {out['realize_s']!r} s); "
           f"{n_lik} likelihood evaluations of {out['likelihood_eval_s']!r} s "
@@ -2041,30 +2073,59 @@ def dist_fit_run(torch, ck, mesh, corr, seed):
           f"{var_err!r} sigma2; holdout Q2 {q2!r}; K1 launches {launches} "
           f"by shape {out['k1_by_shape']}", flush=True)
     if not rel <= DIST_LKH_RTOL:
-        raise RuntimeError(f"dist {corr} seed {seed}: likelihood rel "
+        raise RuntimeError(f"{label} {corr} seed {seed}: likelihood rel "
                            f"{rel} > {DIST_LKH_RTOL}")
     if not (mean_err <= DIST_SERVE_TOL and var_err <= DIST_SERVE_TOL):
-        raise RuntimeError(f"dist {corr} seed {seed}: against the "
+        raise RuntimeError(f"{label} {corr} seed {seed}: against the "
                            f"materialized model {mean_err}, {var_err}")
-    return out, model, xq
+    x = torch.tensor(x, device=DEV)
+    out["k1_err"] = dist_k1_checks(torch, ck, model, x, xq, shapes, seed,
+                                   f"{label} {corr} seed {seed}")
+    print(f"{label} {corr} seed {seed}: K1 at its {len(shapes)} shape(s) "
+          f"against the plain version on the run's inputs, max abs err "
+          f"{out['k1_err']!r} (atol {K1_ATOL})", flush=True)
+    return out, model, x, xq
 
 
-def dist_k1_checks(torch, ck, model, xq):
-    """K1 at the shapes (b) launched it (the 20 000^2 row block of the
-    Gram, the 20 000 x 512 cross Gram of the prediction) against the plain
-    version on (b)'s inputs (the 4 ranks check theirs); the 20 000^2
-    launch timed beside its bound."""
-    xn = model.x_norm_feed.contiguous()
+def dist_k1_checks(torch, ck, model, x, xq, shapes, seed=None,
+                   label="dist"):
+    """K1 at every shape of ``shapes`` (those a distributed run launched
+    it at on this rank, counted from 0 around the run) against the plain
+    version on this rank's own inputs: its feed rows of the normalized
+    training points ``x`` against all of them (the row block of the Gram,
+    a general launch as the run's), the same rows against the normalized
+    query points ``xq`` (the prediction's cross Gram) and, where ``seed``
+    is the fit's, the subsample of its warm start (rank 0's one-card fit:
+    a symmetric launch with row sums) at theta*. A shape with no inputs
+    to rebuild it on raises. Returns the largest error."""
+    x1 = model.x_norm_feed.contiguous()
+    xn = ((x - model.x_mean) / model.x_std).contiguous()
     xqn = ((xq - model.x_mean) / model.x_std).contiguous()
     th = model.theta.contiguous()
+    inputs = {(len(x1), len(xn)): (x1, xn, th),
+              (len(x1), len(xqn)): (x1, xqn, th)}
+    sub = DIST_FIT_KW["subsample_warmstart"]
+    if seed is not None and len(x) > sub:
+        idx = np.random.default_rng(seed).permutation(len(x))[:sub]
+        xs = x[torch.as_tensor(idx, device=x.device)]
+        xs = ((xs - xs.mean(dim=0)) / xs.std(dim=0)).contiguous()
+        inputs[(sub, sub)] = (xs, xs, th, True)
     worst = 0.0
-    for what, x1, x2 in (("20000x20000", xn[torch.randperm(
-            DIST_N, device=DEV)], xn), ("20000x512", xn, xqn)):
-        x1 = x1.contiguous()
-        worst = max(worst, _k1_check(
-            torch, f"dist {what}", ck.corr_cross_tile("matern52", x1, x2, th),
-            ck.corr_cross_plain("matern52", x1, x2, th)))
-    x1 = xn.clone()  # another tensor: the general launch, as the fit's
+    for n1, n2 in shapes:
+        if (n1, n2) not in inputs:
+            raise RuntimeError(f"{label}: K1 launched at {n1}x{n2}, a shape "
+                               "with no inputs to check it on")
+        worst = max(worst, _k1_check_at(torch, ck, f"{label} {n1}x{n2}",
+                                        model.corr, *inputs[(n1, n2)]))
+    return worst
+
+
+def dist_k1_timing(torch, ck, model, x):
+    """(b)'s 20 000^2 general launch (the feed rows against all rows, as
+    the fit's) timed beside its plain version and its bound."""
+    x1 = model.x_norm_feed.contiguous()
+    xn = ((x - model.x_mean) / model.x_std).contiguous()
+    th = model.theta.contiguous()
     ms = time_ms(torch, lambda: ck.corr_cross_tile("matern52", x1, xn, th),
                  reps=3, batch=5)
     plain_ms = time_ms(torch, lambda: ck.corr_cross_plain("matern52", x1,
@@ -2072,12 +2133,10 @@ def dist_k1_checks(torch, ck, model, xq):
                        reps=3, batch=1)
     bound_ms, bound_by = bound(4 * (2 * DIST_N * DIM + DIM + DIST_N**2),
                                DIST_N**2 * (8 * DIM + 1))
-    print(f"dist K1: at (b)'s shapes against the plain "
-          f"version max abs err {worst!r} (atol {K1_ATOL}); 20000x20000 "
-          f"general launch {ms!r} ms (plain {plain_ms!r} ms, bound "
-          f"{bound_ms!r} ms by {bound_by})", flush=True)
-    return dict(max_abs_err=worst, ms_20000x20000=ms,
-                plain_ms_20000x20000=plain_ms,
+    print(f"dist K1: 20000x20000 general launch {ms!r} ms (plain "
+          f"{plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by})",
+          flush=True)
+    return dict(ms_20000x20000=ms, plain_ms_20000x20000=plain_ms,
                 bound_ms_20000x20000=bound_ms)
 
 
@@ -2132,6 +2191,33 @@ def dist_at_theta(torch, mesh, inp, dtype):
                 mean=mean.cpu().numpy(), var=var.cpu().numpy()), model
 
 
+def rank_work(torch, egx, ck, mesh, rank, inp):
+    """(c) / (e) and (d) / (g) on this rank's ``mesh``: the work of
+    ``dist_at_theta`` in float32 (K1 counted from 0 around it) and float64,
+    K1 at every shape it launched (the row block, the prediction's cross
+    Gram) against the plain version on this rank's own inputs, and the
+    EgorBatch run; numpy out."""
+    ck.launches = 0
+    ck.launch_shapes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f32, model = dist_at_theta(torch, mesh, inp, torch.float32)
+    torch.cuda.synchronize()
+    shapes = dict(ck.launch_shapes)
+    out = dict(s=time.perf_counter() - t0, f32=f32, bp=model.bp,
+               k1=ck.launches,
+               k1_by_shape={f"{a}x{b}": c for (a, b), c in
+                            sorted(shapes.items())})
+    out["k1_err"] = dist_k1_checks(
+        torch, ck, model, torch.tensor(inp["x"], device=mesh.device),
+        torch.tensor(inp["xq"], device=mesh.device), shapes,
+        label=f"rank {rank}")
+    del model
+    out["f64"] = dist_at_theta(torch, mesh, inp, torch.float64)[0]
+    out["batch"] = dist_egor_batch(egx, mesh)
+    return out
+
+
 def dist_ranks_worker(rank, world_size, inp):
     """One of the gloo ranks sharing the card ((c) and (d)); numpy out."""
     import torch
@@ -2141,29 +2227,36 @@ def dist_ranks_worker(rank, world_size, inp):
 
     egx = import_port()
     mesh = P.make_mesh(world_size, axis="rows")
-    ck.launches = 0
-    ck.launch_shapes.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    f32, model = dist_at_theta(torch, mesh, inp, torch.float32)
-    torch.cuda.synchronize()
-    out = dict(s=time.perf_counter() - t0, f32=f32, bp=model.bp,
-               k1=ck.launches,
-               k1_by_shape={f"{a}x{b}": c for (a, b), c in
-                            sorted(ck.launch_shapes.items())})
-    # K1 at this rank's shapes, on its inputs, against the plain version
-    x1 = model.x_norm_feed.contiguous()
-    x = torch.tensor(inp["x"], device=mesh.device)
-    xn = ((x - model.x_mean) / model.x_std).contiguous()
-    th = model.theta.contiguous()
-    out["k1_err"] = _k1_check(
-        torch, f"rank {rank} {tuple(x1.shape)}x{tuple(xn.shape)}",
-        ck.corr_cross_tile("matern52", x1, xn, th),
-        ck.corr_cross_plain("matern52", x1, xn, th))
-    del model
-    out["f64"] = dist_at_theta(torch, mesh, inp, torch.float64)[0]
-    out["batch"] = dist_egor_batch(egx, mesh)
-    return out
+    return rank_work(torch, egx, ck, mesh, rank, inp)
+
+
+def ranks_agreement(ranks, one):
+    """W ranks against the one-rank path ((c), (e)), relative, in float64
+    and float32; the float32 gradient (an explicit float32 inverse, as
+    egobox_tpu's) against float64, no worse than the one-rank path's;
+    whether every rank holds the same values. Returns (errs, grad32, same,
+    ok)."""
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - b)) / np.max(np.abs(b)))
+
+    r0 = ranks[0]
+    errs = {f"{k}_{dt}": rel(r0[dt][k], one[dt][k]) for dt in ("f64", "f32")
+            for k in ("lik", "grad", "mean", "var")}
+    grad32 = dict(ranks=rel(r0["f32"]["grad"], one["f64"]["grad"]),
+                  one=rel(one["f32"]["grad"], one["f64"]["grad"]))
+    same = all(r[dt][k] == r0[dt][k] if k == "lik" else
+               np.array_equal(r[dt][k], r0[dt][k])
+               for r in ranks for dt in ("f32", "f64")
+               for k in ("lik", "grad", "mean"))
+    gated = {k: v for k, v in errs.items() if k != "grad_f32"}
+    ok = (same and max(gated.values()) <= DIST_RANKS_RTOL
+          and grad32["ranks"] <= max(DIST_RANKS_RTOL, 2.0 * grad32["one"]))
+    return errs, grad32, same, ok
+
+
+def batch_gap(a, b):
+    """The largest difference between two EgorBatch runs' proposals."""
+    return float(np.max(np.abs(a["x_doe"] - b["x_doe"])))
 
 
 def dist_phase(torch, egx, ck):
@@ -2184,12 +2277,13 @@ def dist_phase(torch, egx, ck):
             runs = [dist_fit_run(torch, ck, mesh, corr, seed)
                     for seed in (0, 1)]  # seed 0 the warm-up
             out[corr] = [r[0] for r in runs]
-        model, xq = runs[1][1], runs[1][2]  # matern52, seed 1
+        model, x = runs[1][1], runs[1][2]  # matern52, seed 1
         if out["matern52"][1]["k1_launches"] <= 0:
             raise RuntimeError("dist matern52: K1 was not launched")
-        out["k1"] = dist_k1_checks(torch, ck, model, xq)
+        out["k1"] = dict(dist_k1_timing(torch, ck, model, x), max_abs_err=max(
+            r["k1_err"] for c in out.values() for r in c))
         theta = model.theta.cpu().numpy()
-        del model, runs
+        del model, runs, x
 
         # (c)'s one-rank reference on its data at (b)'s theta*
         x, y = dist_data(DIST_N4, 2)
@@ -2210,21 +2304,7 @@ def dist_phase(torch, egx, ck):
     ranks = run_ranks(dist_ranks_worker, DIST_RANKS, (inp,), timeout=600)
     ranks_s = time.perf_counter() - t0
     r0 = ranks[0]
-
-    def rel(a, b):
-        return float(np.max(np.abs(np.asarray(a) - b)) / np.max(np.abs(b)))
-
-    # 4 ranks against one, in float64 and float32; the float32 gradient (an
-    # explicit float32 inverse, as egobox_tpu's) against float64, no worse
-    # than the one-rank path's
-    errs = {f"{k}_{dt}": rel(r0[dt][k], one[dt][k]) for dt in ("f64", "f32")
-            for k in ("lik", "grad", "mean", "var")}
-    grad32 = dict(ranks=rel(r0["f32"]["grad"], one["f64"]["grad"]),
-                  one=rel(one["f32"]["grad"], one["f64"]["grad"]))
-    same = all(r[dt][k] == r0[dt][k] if k == "lik" else
-               np.array_equal(r[dt][k], r0[dt][k])
-               for r in ranks for dt in ("f32", "f64")
-               for k in ("lik", "grad", "mean"))
+    errs, grad32, same, ok = ranks_agreement(ranks, one)
     print(f"dist (c): {DIST_RANKS} gloo ranks on the card, n={DIST_N4}, "
           f"bp={r0['bp']}: {ranks_s!r} s for the group (float32 work "
           f"{[r['s'] for r in ranks]} s per rank); against the one-rank path "
@@ -2234,9 +2314,7 @@ def dist_phase(torch, egx, ck):
           f"{[r['k1'] for r in ranks]} by shape {r0['k1_by_shape']}, "
           f"against the plain version max abs err "
           f"{max(r['k1_err'] for r in ranks)!r}", flush=True)
-    gated = {k: v for k, v in errs.items() if k != "grad_f32"}
-    if not same or max(gated.values()) > DIST_RANKS_RTOL or grad32[
-            "ranks"] > max(DIST_RANKS_RTOL, 2.0 * grad32["one"]):
+    if not ok:
         raise RuntimeError(f"dist (c): 4 ranks against one {errs}, "
                            f"float32 gradients against float64 {grad32}, "
                            f"the same on every rank: {same}")
@@ -2247,13 +2325,10 @@ def dist_phase(torch, egx, ck):
     # mesh, and the 4 ranks' the run on the same 4 blocks of lanes
     # (tests/torch_parallel_ranks.py lane_blocks); the objective ran on
     # rank 0 only
-    def gap(a, b):
-        return float(np.max(np.abs(a["x_doe"] - b["x_doe"])))
-
-    d = dict(mesh1_vs_plain=gap(batch["mesh1"], batch["plain"]),
-             ranks_vs_blocks=max(gap(r["batch"], batch["blocks"])
+    d = dict(mesh1_vs_plain=batch_gap(batch["mesh1"], batch["plain"]),
+             ranks_vs_blocks=max(batch_gap(r["batch"], batch["blocks"])
                                  for r in ranks),
-             ranks_vs_plain=gap(r0["batch"], batch["plain"]),
+             ranks_vs_plain=batch_gap(r0["batch"], batch["plain"]),
              calls=[r["batch"]["calls"] for r in ranks],
              plain_calls=batch["plain"]["calls"],
              s={k: v["s"] for k, v in batch.items()},
@@ -2422,18 +2497,8 @@ def f32_k1_checks(torch, ck, ref, shapes, device=DEV):
         if (n1, n2) not in inputs:
             raise RuntimeError(f"f32: K1 launched at {n1}x{n2}, a shape "
                                "with no inputs to check it on")
-        x1, x2, th, sums = inputs[(n1, n2)]
-        got = ck.corr_cross_tile("matern52", x1, x2, th, row_sums=sums)
-        want = ck.corr_cross_plain("matern52", x1, x2, th, row_sums=sums)
-        if sums:
-            # the row sums of n2 entries, each within K1_ATOL
-            err = float(torch.max(torch.abs(got[1] - want[1])))
-            if not err <= n2 * K1_ATOL:
-                raise RuntimeError(f"K1 f32 shape {n1}x{n2}: row sums "
-                                   f"{err!r} > {n2 * K1_ATOL!r}")
-            got, want = got[0], want[0]
-        worst = max(worst, _k1_check(torch, f"f32 shape {n1}x{n2}", got,
-                                     want))
+        worst = max(worst, _k1_check_at(torch, ck, f"f32 shape {n1}x{n2}",
+                                        "matern52", *inputs[(n1, n2)]))
     return worst
 
 
@@ -2517,23 +2582,155 @@ def f32_phase(torch, egx, ck, g24_seeds=F32_G24_SEEDS):
     return out
 
 
-PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd", "dist", "f32")
+# the cards phase (``cards``): the distributed GP with one NCCL rank per
+# card, W = min(cards of the host, --cards) ranks started by
+# ``run_ranks(backend="nccl")``, each printing its card. (e) the dist
+# phase's n = 20 000 data (seed 1) at CARDS_THETA (Matern 5/2) on the W
+# ranks against the in-process one-rank mesh: likelihood, gradient, mean
+# and variance within DIST_RANKS_RTOL (the float32 gradient against
+# float64, as (c)), K1 on each rank's row blocks against the plain
+# version, its launches by shape per rank; (g) EgorBatch(mesh=) over the
+# 8 quadratics within DIST_BATCH_ATOL of the run without a mesh on the
+# same W blocks of lanes; (f) with W >= 2, fit_gp(mesh=, corr="matern52",
+# **DIST_FIT_KW) on n = 40 000 points (seed 1) plus 512 query points,
+# under (b)'s gates, timed per rank.
+CARDS_W, CARDS_N_FIT = 4, 40_000
+CARDS_THETA = np.full(DIM, 0.2)
+
+
+def cards_worker(rank, world_size, inp):
+    """One NCCL rank of the cards phase, on card ``rank``; numpy out."""
+    import torch
+
+    from egobox_torch import parallel as P
+    from egobox_torch.ops import corr_kernel as ck
+
+    egx = import_port()
+    card = torch.cuda.current_device()
+    name = torch.cuda.get_device_name(card)
+    print(f"cards: rank {rank} of {world_size} on card {card} ({name})",
+          flush=True)
+    mesh = P.make_mesh(world_size, axis="rows")
+    if mesh.device != torch.device("cuda", card):
+        raise RuntimeError(f"cards: rank {rank}'s mesh is on {mesh.device}, "
+                           f"its card is {card}")
+    out = rank_work(torch, egx, ck, mesh, rank, inp)
+    out.update(card=card, name=name)
+    if world_size >= 2:
+        out["fit"] = dist_fit_run(torch, ck, mesh, "matern52", 1,
+                                  n=CARDS_N_FIT,
+                                  label=f"cards (f) rank {rank}")[0]
+    return out
+
+
+def cards_phase(torch, egx, n_cards):
+    """(e)-(g) above. The one-rank reference (NCCL, in this process) is
+    made and its group destroyed before the W ranks start."""
+    from egobox_torch import parallel as P
+    from egobox_torch.parallel.launch import run_ranks
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_parallel_ranks import lane_blocks
+
+    t_phase = time.perf_counter()
+    w = min(torch.cuda.device_count(), n_cards)
+    if DIST_N % w or 8 % w:
+        raise RuntimeError(f"cards: {w} ranks must divide n = {DIST_N} and "
+                           "the 8 problems of (g)")
+    x, y = dist_data(DIST_N, 1)
+    inp = dict(x=x[:DIST_N], y=y[:DIST_N], xq=x[DIST_N:], theta=CARDS_THETA)
+    mesh = P.make_mesh(1, axis="rows")
+    try:
+        one = {k: dist_at_theta(torch, mesh, inp, dt)[0]
+               for k, dt in (("f32", torch.float32), ("f64", torch.float64))}
+    finally:
+        mesh.close()
+    with lane_blocks(w):
+        ref = dist_egor_batch(egx)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(cards_worker, w, (inp,), timeout=900, backend="nccl")
+    ranks_s = time.perf_counter() - t0
+    cards = [r["card"] for r in ranks]
+    print(f"cards: {w} NCCL ranks on cards {cards} "
+          f"({[r['name'] for r in ranks]}); {ranks_s!r} s for the group",
+          flush=True)
+    if sorted(cards) != list(range(w)):
+        raise RuntimeError(f"cards: the ranks report cards {cards}")
+
+    errs, grad32, same, ok = ranks_agreement(ranks, one)
+    e = dict(errs=errs, grad32=grad32, same=same, bp=ranks[0]["bp"],
+             s=[r["s"] for r in ranks], k1=[r["k1"] for r in ranks],
+             k1_by_shape=[r["k1_by_shape"] for r in ranks],
+             k1_err=max(r["k1_err"] for r in ranks))
+    print(f"cards (e): {w} NCCL ranks, n={DIST_N}, bp={e['bp']}, Matern 5/2 "
+          f"at theta {CARDS_THETA[0]}: float32 work {e['s']} s per rank; "
+          f"against the in-process one-rank mesh (relative) {errs}; the "
+          f"float32 gradient against float64: {w} ranks "
+          f"{grad32['ranks']!r}, one rank {grad32['one']!r}; the same on "
+          f"every rank: {same}; K1 launches per rank {e['k1']} by shape "
+          f"{e['k1_by_shape']}, against the plain version max abs err "
+          f"{e['k1_err']!r}", flush=True)
+    if not ok:
+        raise RuntimeError(f"cards (e): {w} ranks against one {errs}, "
+                           f"float32 gradients against float64 {grad32}, "
+                           f"the same on every rank: {same}")
+    if min(e["k1"]) <= 0:
+        raise RuntimeError("cards (e): a rank launched no K1")
+
+    g = dict(ranks_vs_ref=max(batch_gap(r["batch"], ref) for r in ranks),
+             calls=[r["batch"]["calls"] for r in ranks],
+             ref_calls=ref["calls"], ref_s=ref["s"],
+             rank_s=[r["batch"]["s"] for r in ranks])
+    print(f"cards (g) EgorBatch 8 quadratics, 8 iterations: proposals of the "
+          f"{w} NCCL ranks against the run without a mesh on {w} block(s) "
+          f"of lanes, max abs difference {g['ranks_vs_ref']!r}; objective "
+          f"calls per rank {g['calls']} (no mesh {g['ref_calls']}); seconds "
+          f"{g['rank_s']} per rank, {g['ref_s']!r} without a mesh",
+          flush=True)
+    if not g["ranks_vs_ref"] <= DIST_BATCH_ATOL:
+        raise RuntimeError(f"cards (g): proposals differ {g}")
+    if g["calls"] != [g["ref_calls"]] + [0] * (w - 1):
+        raise RuntimeError(f"cards (g): objective calls {g['calls']}")
+
+    out = dict(w=w, cards=cards, names=[r["name"] for r in ranks],
+               ranks_s=ranks_s, e=e, g=g)
+    if w >= 2:
+        out["f"] = [r["fit"] for r in ranks]
+        print(f"cards (f): K1 at every shape of each rank's run against "
+              f"the plain version, max abs err per rank "
+              f"{[f['k1_err'] for f in out['f']]}", flush=True)
+    else:
+        print(f"cards (f): the fit of n={CARDS_N_FIT} across cards needs 2 "
+              f"or more cards; this host has {torch.cuda.device_count()}, "
+              "so (f) did not run", flush=True)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"cards: phase {out['s']!r} s", flush=True)
+    return out
+
+
+PHASES = ("kernels", "slice", "egor", "moe", "sgp", "hd", "dist", "f32",
+          "cards")
 
 
 def main():
     """All phases with no argument (the contract's run); ``--phases
     moe,egor`` runs a subset after the build, and then prints no kernels
     line and no result line."""
-    phases, g24_seeds = PHASES, F32_G24_SEEDS
+    phases, g24_seeds, n_cards = PHASES, F32_G24_SEEDS, CARDS_W
     args = sys.argv[1:]
     while args:
         if len(args) >= 2 and args[0] == "--phases":
             phases = tuple(args[1].split(","))
         elif len(args) >= 2 and args[0] == "--f32-g24-seeds":
             g24_seeds = tuple(int(v) for v in args[1].split(","))
+        elif len(args) >= 2 and args[0] == "--cards":
+            n_cards = int(args[1])
         else:
             raise SystemExit("usage: chip_smoke.py [--phases "
-                             f"{','.join(PHASES)}] [--f32-g24-seeds 42,2,3]")
+                             f"{','.join(PHASES)}] [--f32-g24-seeds 42,2,3] "
+                             "[--cards 4]")
         args = args[2:]
     torch = device_phase()
     egx = import_port()
@@ -2590,6 +2787,9 @@ def main():
     if "f32" in phases:
         f32 = f32_phase(torch, egx, ck, g24_seeds)
         print(json.dumps({"f32": f32}), flush=True)
+    if "cards" in phases:
+        cards = cards_phase(torch, egx, n_cards)
+        print(json.dumps({"cards": cards}), flush=True)
     if phases != PHASES:
         return
 
@@ -2615,6 +2815,14 @@ def main():
              launches_dist=dist["matern52"][1]["k1_launches"],
              launches_dist_by_shape=dist["matern52"][1]["k1_by_shape"],
              launches_dist_4_ranks=dist["ranks"]["k1"],
+             launches_cards=cards["e"]["k1"],
+             launches_cards_by_shape=cards["e"]["k1_by_shape"],
+             launches_cards_fit=[f["k1_launches"] for f in cards.get("f", [])],
+             launches_cards_fit_by_shape=[f["k1_by_shape"]
+                                          for f in cards.get("f", [])],
+             cards_max_abs_err=cards["e"]["k1_err"],
+             cards_fit_max_abs_err_per_rank=[f["k1_err"]
+                                             for f in cards.get("f", [])],
              launches_f32=f32["a"]["k1_launches"],
              launches_f32_by_shape=f32["a"]["k1_by_shape"],
              f32_max_abs_err_vs_egobox_tpu=f32["a"]["gram_rows_max_abs_err"],

@@ -2,8 +2,9 @@
 VFE), the mixture of GP experts (dense or sparse experts), the Egor
 optimizer, the user-facing ``Gpx`` / ``SparseGpx`` API with its sampling
 functions, the ``gpqa`` quality report (``python -m egobox_torch.gpqa``),
-and the distributed GP over the ranks of a ``torch.distributed`` group
-(``egobox_torch.parallel``, imported on demand).
+and the distributed GP over the ranks of a ``torch.distributed`` group,
+one rank per card (``egobox_torch.parallel``, imported and exported as
+egobox_tpu exports its ``parallel``).
 
 The port mirrors egobox_tpu's module layout and function names; egobox_tpu
 stays the reference it is tested against. This package imports neither jax
@@ -31,7 +32,7 @@ from .types import (
     XSpec,
     XType,
 )
-from . import doe, ego, gp, moe, optim
+from . import doe, ego, gp, moe, optim, parallel
 from .api import GpMix, Gpx, SparseGpMix, SparseGpx, lhs, sampling
 from .ego import Egor, EgorBatch, GpConfig
 
@@ -67,5 +68,6 @@ __all__ = [
     "lhs",
     "moe",
     "optim",
+    "parallel",
     "sampling",
 ]

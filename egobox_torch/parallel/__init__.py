@@ -2,8 +2,9 @@
 egobox_tpu/parallel): the block-cyclic Cholesky and solves, the
 distributed likelihood, its adjoint and the fit, the row-block model and
 its serving path, and the sharded multistart. SPMD: every rank of the
-mesh calls the same functions (``sharding.Mesh``; ``launch.run_ranks``
-starts ranks on one host)."""
+mesh calls the same functions (``sharding.Mesh``), one rank per card
+(``launch.run_ranks(backend="nccl")`` starts them on one host; a
+torchrun-style launch and ``make_mesh()`` do the same)."""
 
 from .dist_chol import (
     block_cyclic_perm,

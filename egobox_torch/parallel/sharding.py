@@ -20,6 +20,8 @@ reduction XLA inserts for a sharded operand is an explicit collective
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import warnings
 from typing import Optional
 
@@ -28,6 +30,7 @@ import torch.distributed as dist
 
 from ..config import as_tensor, resolve_device
 from . import _comm
+from .launch import card_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,35 +56,123 @@ class Mesh:
             dist.destroy_process_group(self.group)
 
 
+def _card() -> int:
+    """This rank's card: ``$LOCAL_RANK`` where a launcher set it and the
+    process sees more than one card (checked against them,
+    ``launch.card_index``), else the current device. ``run_ranks(
+    backend="nccl")`` sets both to card r for rank r; a launcher that
+    gives each process a card of its own (``CUDA_VISIBLE_DEVICES``)
+    leaves that card visible alone, as the current device."""
+    local = os.environ.get("LOCAL_RANK")
+    n_cards = torch.cuda.device_count()
+    if local is None or n_cards <= 1:
+        return torch.cuda.current_device()
+    local = int(local)
+    return card_index(local, int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                local + 1)), n_cards)
+
+
+def check_distinct_cards(mesh: Mesh, card: int, ident: str) -> None:
+    """Raise ``ValueError`` naming the card when two ranks of ``mesh`` sit
+    on one. ``card`` is the rank's card index, ``ident`` the card's UUID:
+    the index alone cannot tell cards apart when a launcher makes each
+    process see its own card as card 0. Each rank writes (index, a hash
+    of the UUID) into its row of a (size, 2) table, and an all_reduce
+    hands every rank the whole table."""
+    table = torch.zeros((mesh.size, 2), dtype=torch.int64,
+                        device=mesh.device)
+    key = int.from_bytes(hashlib.blake2b(ident.encode(),
+                                         digest_size=7).digest(), "big")
+    table[mesh.rank] = torch.tensor([card, key], dtype=torch.int64)
+    rows = [tuple(r) for r in _comm.all_reduce(mesh, table).tolist()]
+    for index, key in rows:
+        ranks = [r for r, row in enumerate(rows) if row[1] == key]
+        if len(ranks) > 1:
+            raise ValueError(
+                f"make_mesh: ranks {ranks} of the mesh sit on one card, "
+                f"card {index}: NCCL needs one card per rank (start the "
+                "ranks with run_ranks(backend='nccl'), or set LOCAL_RANK)")
+
+
+def _check_nccl_cards(mesh: Mesh) -> None:
+    """``check_distinct_cards`` for a mesh of NCCL ranks, on a gloo group
+    of the same ranks: NCCL itself fails, less plainly, when two ranks
+    share a card. One host only: a group larger than the launcher's
+    ``LOCAL_WORLD_SIZE`` raises."""
+    world = dist.get_world_size()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if world > local:
+        raise ValueError(f"make_mesh: the group's {world} ranks span more "
+                         f"than one host ({local} on this one); a mesh "
+                         "over several hosts is not supported")
+    side = dist.new_group(list(range(mesh.size)), backend="gloo",
+                          use_local_synchronization=True)
+    try:
+        check_distinct_cards(
+            dataclasses.replace(mesh, group=side, device=torch.device("cpu")),
+            mesh.device.index,
+            str(torch.cuda.get_device_properties(mesh.device).uuid))
+    finally:
+        dist.destroy_process_group(side)
+
+
 def make_mesh(n_devices: Optional[int] = None, axis: str = "starts", *,
               device=None, backend: Optional[str] = None) -> Mesh:
-    """A mesh over the first ``n_devices`` ranks (default: all of them).
+    """A mesh over the first ``n_devices`` ranks (default: all of them),
+    the port's counterpart of egobox_tpu's "first n devices of the host".
 
     ``device`` defaults to the GPU (``config.resolve_device``: a host
-    without one raises). With no default process group initialized, the
-    mesh is this process alone: ``make_mesh`` starts a one-rank group on a
-    ``HashStore`` itself, with ``backend`` or the device's (NCCL for CUDA,
-    gloo for the CPU); asked for more ranks then, it warns and degrades to
-    one, as egobox_tpu degrades to the devices it has. In an initialized
-    group of W ranks, more than W degrades to W with a warning; fewer (or
-    another ``backend`` than the group's) makes a new group of ranks 0 ..
-    n - 1, which only those ranks call. Several ranks on one GPU need
-    ``backend="gloo"``: NCCL refuses them. An init that fails raises."""
+    without one raises). Three rules place the ranks and find the group:
+
+    - **Device choice.** With ``device`` a bare ``"cuda"`` (the default),
+      each rank computes on the card its launcher chose: ``cuda:$LOCAL_RANK``
+      where a launcher set ``LOCAL_RANK`` (torchrun does;
+      ``launch.run_ranks(backend="nccl")`` sets it, and the current
+      device, to card r for rank r), else the current device (a process
+      that sees one card only takes that one, whatever ``LOCAL_RANK``).
+    - **Distinct cards.** On an NCCL group of several ranks on one host
+      the ranks check, over a gloo group of the same ranks, that no two
+      resolved to the same card (told apart by UUID), and raise
+      ``ValueError`` naming the card if they did.
+    - **Joining a launched group.** With no process group initialized and
+      ``WORLD_SIZE`` > 1 in the environment (torchrun's ``RANK``,
+      ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), the rank joins
+      that group (``init_method="env://"``; on the card it first makes
+      its card current) with ``backend`` or the device's (NCCL for CUDA,
+      gloo for the CPU), and ``close()`` ends it.
+
+    With neither a group nor those variables the mesh is this process
+    alone: ``make_mesh`` starts a one-rank group on a ``HashStore``;
+    asked for more ranks then, it warns and degrades to one, as
+    egobox_tpu degrades to the devices it has. In an initialized group of
+    W ranks, more than W degrades to W with a warning; fewer (or another
+    ``backend`` than the group's) makes a new group of ranks 0 .. n - 1,
+    which only those ranks call. Several ranks on one GPU need
+    ``backend="gloo"``. An init that fails raises."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+        device = torch.device("cuda", _card())
+    default_backend = backend or ("nccl" if device.type == "cuda"
+                                  else "gloo")
+    owns = False
     if not dist.is_initialized():
-        n = n_devices or 1
-        if n > 1:
-            warnings.warn(
-                f"make_mesh: asked for {n} ranks, have 1 (no process group "
-                "is initialized) — degrading to a 1-rank mesh",
-                stacklevel=2,
-            )
-        dist.init_process_group(
-            backend or ("nccl" if device.type == "cuda" else "gloo"),
-            store=dist.HashStore(), rank=0, world_size=1)
-        return Mesh(dist.group.WORLD, 0, 1, (axis,), device, True)
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            n = n_devices or 1
+            if n > 1:
+                warnings.warn(
+                    f"make_mesh: asked for {n} ranks, have 1 (no process "
+                    "group is initialized) — degrading to a 1-rank mesh",
+                    stacklevel=2,
+                )
+            dist.init_process_group(default_backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+            return Mesh(dist.group.WORLD, 0, 1, (axis,), device, True)
+        if device.type == "cuda":
+            # no device_id: NCCL comes up at the first collective, after
+            # the distinct-card check below
+            torch.cuda.set_device(device)
+        dist.init_process_group(default_backend, init_method="env://")
+        owns = True
     world, rank = dist.get_world_size(), dist.get_rank()
     n = n_devices or world
     if n > world:
@@ -90,13 +181,18 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "starts", *,
             f"{world} — degrading to a {world}-rank mesh", stacklevel=2)
         n = world
     if n == world and backend in (None, dist.get_backend()):
-        return Mesh(dist.group.WORLD, rank, n, (axis,), device)
-    if rank >= n:
+        mesh = Mesh(dist.group.WORLD, rank, n, (axis,), device, owns)
+    elif rank >= n:
         raise ValueError(f"make_mesh: rank {rank} is not among the first "
                          f"{n} ranks of the mesh")
-    group = dist.new_group(list(range(n)), backend=backend,
-                           use_local_synchronization=True)
-    return Mesh(group, rank, n, (axis,), device, True)
+    else:
+        group = dist.new_group(list(range(n)), backend=backend,
+                               use_local_synchronization=True)
+        mesh = Mesh(group, rank, n, (axis,), device, True)
+    if (mesh.size > 1 and device.type == "cuda"
+            and dist.get_backend(mesh.group) == "nccl"):
+        _check_nccl_cards(mesh)
+    return mesh
 
 
 def _block(mesh: Mesh, n: int, what: str) -> slice:

@@ -115,6 +115,11 @@ def test_module_functions_and_exports():
     for name in ("Gpx", "GpMix", "SparseGpx", "SparseGpMix", "lhs",
                  "sampling"):
         assert name in egx.__all__
+    # every name egobox_tpu exports (its parallel package included) is
+    # exported by the port and is an attribute of the package
+    missing = [n for n in egj.__all__
+               if n not in egx.__all__ or not hasattr(egx, n)]
+    assert missing == []
     assert egx.SparseMethod.Fitc is egx.SparseMethod.FITC
     assert len(list(egx.Sampling)) == 7
 

@@ -11,6 +11,12 @@ well-conditioned SPD panel (tests/test_pallas_chol.py's target).
 """
 
 import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -980,6 +986,88 @@ def test_rank_warmstart_fit_launches_k1_at_the_ranking_shapes(dev):
     assert ck.launches > before
     for shape in ((1000, 1000), (2000, 2000), (3000, 3000)):
         assert ck.launch_shapes[shape] >= 1, dict(ck.launch_shapes)
+
+
+def _nccl_card_rank(rank, world_size):
+    """The rank side of the test below: its mesh's card, its current
+    device, and an all_reduce over NCCL."""
+    from egobox_torch import parallel as P
+
+    mesh = P.make_mesh()
+    total = P._comm.all_reduce(mesh, torch.ones(1, device=mesh.device))
+    return (mesh.size, mesh.device.index, torch.cuda.current_device(),
+            float(total))
+
+
+def test_nccl_ranks_take_distinct_cards(dev):
+    """run_ranks(backend="nccl") over every card of the host: rank r's
+    mesh computes on card r, its current device, and the group reduces."""
+    from egobox_torch.parallel.launch import run_ranks
+
+    w = torch.cuda.device_count()
+    got = run_ranks(_nccl_card_rank, w, backend="nccl", timeout=300)
+    assert got == [(w, r, r, float(w)) for r in range(w)]
+
+
+_TORCHRUN_RANK = """
+import json, torch
+from egobox_torch import parallel as P
+mesh = P.make_mesh()
+total = P._comm.all_reduce(
+    mesh, torch.full((1,), mesh.rank + 1.0, device=mesh.device))
+print(json.dumps([mesh.rank, mesh.size, mesh.device.index,
+                  torch.cuda.current_device(),
+                  torch.distributed.get_backend(mesh.group), float(total)]))
+mesh.close()
+"""
+
+
+def _torchrun_ranks(local_ranks):
+    """Processes started as torchrun starts its ranks on one host
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), one for each entry of
+    ``local_ranks``, each making ``make_mesh()``; their (returncode,
+    stdout, stderr)."""
+    root = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "GROUP_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        filter(None, [str(root), env.get("PYTHONPATH")]))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    w = len(local_ranks)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TORCHRUN_RANK], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(env, WORLD_SIZE=str(w), RANK=str(r), LOCAL_RANK=str(lr),
+                 LOCAL_WORLD_SIZE=str(w), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=port)) for r, lr in enumerate(local_ranks)]
+    got = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=180)
+            got.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            p.kill()
+    return got
+
+
+def test_make_mesh_joins_a_torchrun_style_group_on_the_cards(dev):
+    """Two ranks launched as torchrun launches them make one NCCL mesh of
+    2 ranks on cards 0 and 1, and reduce over it; with ``LOCAL_RANK`` 0
+    for both, both refuse, naming card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards or more")
+    got = _torchrun_ranks([0, 1])
+    assert [rc for rc, _, _ in got] == [0, 0], [err for _, _, err in got]
+    assert [json.loads(out.strip().splitlines()[-1]) for _, out, _ in got] \
+        == [[r, 2, r, r, "nccl", 3.0] for r in range(2)]
+    for rc, _, err in _torchrun_ranks([0, 0]):
+        assert rc != 0
+        assert "ranks [0, 1] of the mesh sit on one card, card 0:" in err
 
 
 def test_a_capture_that_cannot_succeed_raises(dev):
