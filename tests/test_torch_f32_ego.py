@@ -290,7 +290,7 @@ def test_in_process_float32_equals_a_no_x64_process(no_x64_process):
     the same bits as a process started with ``EGOBOX_TPU_NO_X64=1`` (its
     own switch, which bench.py sets): ``log_ei_helper`` on NAN_GRID, NaN
     band included. Every float32 reference of the lane relies on it."""
-    out, err = no_x64_process.communicate(timeout=300)
+    out, err = no_x64_process.communicate(timeout=240)
     assert no_x64_process.returncode == 0, err
     out = out.strip().splitlines()[-1]
     theirs = np.frombuffer(bytes.fromhex(json.loads(out)), np.float32)

@@ -404,7 +404,7 @@ def test_reference_file_matches_egobox_tpu(f32_tool, f32_file,
         assert f32_file[k].dtype == v.dtype and np.array_equal(f32_file[k],
                                                                v), k
     proc, path = regenerated_outputs
-    _, err = proc.communicate(timeout=600)
+    _, err = proc.communicate(timeout=240)
     assert proc.returncode == 0, err
     out = dict(np.load(path))
     for k, v in out.items():
