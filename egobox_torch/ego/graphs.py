@@ -41,23 +41,19 @@ not overwrite them.
 
 The cache counts what the graphs cost (captures, capture seconds, the
 bytes their pool holds, replays, evictions) and, for the kernels of
-``ops``, the launches a capture recorded and the launches replays made: a
-kernel's own counter rises once per launch the host issues, in a capture
-too, where the launch is recorded and does not run. The launches that ran
-are the counter's rise, less ``kernel_captured``, plus ``kernel_replays``.
+``ops``, the launches a capture recorded and the launches replays made
+(ops/graph_stats.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
 
 import torch
 
-from ..ops import chol_kernel, corr_kernel
-
-_KERNELS = {"corr_tile": corr_kernel, "factor_panel": chol_kernel}
+from ..ops.graph_stats import (GraphStats, add_counts, launch_counts,
+                               launches_since)
 
 #: designs padded to more rows than this run eagerly, in the early-exit
 #: form, at every call: there the device time of the fixed trip counts
@@ -110,36 +106,6 @@ class _Graph:
     launches: dict  # kernel name -> launches held by the graph
 
 
-@dataclasses.dataclass
-class GraphStats:
-    """What the graphs of one cache cost, summed over its signatures."""
-
-    eager: int = 0  # the warm-up call (its result is the call's)
-    captures: int = 0
-    capture_s: float = 0.0
-    #: device memory the pool of the live graphs held after the last
-    #: capture, and the most it held after any capture (None: not measured)
-    pool_bytes: Optional[int] = 0
-    pool_peak_bytes: Optional[int] = 0
-    #: graphs dropped because the design outgrew their size
-    evicted: int = 0
-    replays: int = 0
-    #: kernel launches recorded by captures (they did not run), and made
-    #: by replays, by kernel name
-    kernel_captured: dict = dataclasses.field(default_factory=dict)
-    kernel_replays: dict = dataclasses.field(default_factory=dict)
-    #: what the last call did: "eager", "capture" or "replay"
-    last: str = ""
-
-    def as_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
-
-def _add(counts: dict, more: dict) -> None:
-    for name, n in more.items():
-        counts[name] = counts.get(name, 0) + n
-
-
 class GraphCache:
     """Captured graphs by signature (see the module docstring). One cache
     belongs to one solver; it holds the graphs of one design size."""
@@ -183,7 +149,7 @@ class GraphCache:
             self.stats.last = "replay"
         entry.graph.replay()
         self.stats.replays += 1
-        _add(self.stats.kernel_replays, entry.launches)
+        add_counts(self.stats.kernel_replays, entry.launches)
         return _tree_map(torch.clone, entry.outputs)
 
     def _evict(self):
@@ -216,7 +182,7 @@ class GraphCache:
         static = {k: _tree_map(torch.clone, v) for k, v in inputs.items()}
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        counts = {k: mod.launches for k, mod in _KERNELS.items()}
+        counts = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
@@ -230,10 +196,8 @@ class GraphCache:
         self.stats.pool_peak_bytes = (
             None if held is None or self.stats.pool_peak_bytes is None
             else max(self.stats.pool_peak_bytes, held))
-        launches = {k: mod.launches - counts[k]
-                    for k, mod in _KERNELS.items()
-                    if mod.launches > counts[k]}
-        _add(self.stats.kernel_captured, launches)
+        launches = launches_since(counts)
+        add_counts(self.stats.kernel_captured, launches)
         entry = _Graph(graph, static, outputs, launches)
         self._graphs[key] = entry
         return entry

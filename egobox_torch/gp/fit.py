@@ -7,7 +7,8 @@
   vmapped program, and so does the port (lockstep lanes on a stack of
   thetas) up to ``_LANES_MAX_POINTS`` points and ``_LANES_BYTES`` of
   stacked factorizations; above, and on the residual-reuse path, lane
-  after lane;
+  after lane (above, on the GPU, every line-search trial of the fit
+  replays one CUDA graph: optim/trial_graph.py ``TrialGraph``);
 - ``fit_gp_outputs`` fits the columns of a multi-output design at once: the
   outputs x restarts are one lockstep stack, as egobox_tpu's
   ``jax.vmap(fit_one)`` over outputs is one program;
@@ -51,6 +52,7 @@ from ..config import as_tensor
 from ..doe import threefry
 from ..doe.lhs import maximin_lhs
 from ..optim.lbfgsb import minimize_lbfgsb, minimize_tr
+from ..optim.trial_graph import TrialGraph
 from .gp import GpModel
 from .kpls import pls_rotations
 from .likelihood import (
@@ -311,27 +313,18 @@ def _lane_optima(corr, trend, x_lanes, y_lanes, std_lanes, mask_lanes,
     ``y_lanes`` (L, n, 1) and ``std_lanes`` (L,) per lane, ``x_lanes`` /
     ``mask_lanes`` one design for every lane (``shared``) or one per lane.
     The stack advances in chunks of ``lanes_per_chunk`` lanes, one lockstep
-    L-BFGS after the other. Returns each lane's end point and objective,
-    (L, dim) and (L,)."""
+    L-BFGS after the other; in chunks of one, with host reads allowed, lane
+    after lane (``_lane_after_lane``). Returns each lane's end point and
+    objective, (L, dim) and (L,)."""
     n = y_lanes.shape[-2]
     chunk = lanes_per_chunk(n, ls_batch, y_lanes.element_size())
+    if chunk == 1 and not graph_safe:
+        return _lane_after_lane(
+            corr, trend, x_lanes, y_lanes, std_lanes, mask_lanes, inits,
+            lo_l, up_l, w_star=w_star, nugget=nugget, shared=shared,
+            max_iters=max_iters, ls_batch=ls_batch)
     xs, funs = [], []
     for s in range(0, inits.shape[0], chunk):
-        if chunk == 1 and not graph_safe:
-            # one restart: the one-theta objective and L-BFGS, as lane
-            # after lane has always run
-            neg_rlf_theta = make_neg_reduced_likelihood(
-                corr, trend, x_lanes if shared else x_lanes[s],
-                y_lanes[s], std_lanes[s:s + 1], w_star, nugget,
-                mask_lanes if shared else mask_lanes[s])
-            lane = minimize_lbfgsb(
-                lambda tt: neg_rlf_theta(10.0**tt), inits[s], lo_l[s],
-                up_l[s], max_iters=max_iters, ls_batch=ls_batch,
-                final_grad=False,
-            )
-            xs.append(lane.x[None])
-            funs.append(lane.fun.reshape(1))
-            continue
         sl = slice(s, s + chunk)
         neg_rlf_theta = make_neg_reduced_likelihood(
             corr, trend, x_lanes if shared else x_lanes[sl],
@@ -347,6 +340,45 @@ def _lane_optima(corr, trend, x_lanes, y_lanes, std_lanes, mask_lanes,
     xs = xs[0] if len(xs) == 1 else torch.cat(xs)
     funs = funs[0] if len(funs) == 1 else torch.cat(funs)
     return xs, funs
+
+
+def _lane_after_lane(corr, trend, x_lanes, y_lanes, std_lanes, mask_lanes,
+                     inits, lo_l, up_l, *, w_star, nugget, shared: bool,
+                     max_iters: int, ls_batch: int):
+    """``_lane_optima`` one restart at a time: the one-theta objective,
+    built once over buffers that each lane's data is copied into (a shared
+    design is taken as it is), and one L-BFGS-B per lane. With the
+    sequential search every trial of every lane goes through one
+    ``TrialGraph``: one CUDA graph for the fit on the GPU, freed when the
+    restarts are done; eagerly on the CPU."""
+
+    def lane(s):
+        data = [y_lanes[s], std_lanes[s:s + 1]]
+        return data if shared else data + [x_lanes[s], mask_lanes[s]]
+
+    bufs = [torch.empty_like(v) for v in lane(0)]
+    x_buf, mask_buf = (x_lanes, mask_lanes) if shared else bufs[2:]
+    neg_rlf_theta = make_neg_reduced_likelihood(
+        corr, trend, x_buf, bufs[0], bufs[1], w_star, nugget, mask_buf)
+
+    def fun(tt):
+        return neg_rlf_theta(10.0**tt)
+
+    trial = TrialGraph(fun) if ls_batch <= 1 else None
+    xs, funs = [], []
+    try:
+        for s in range(inits.shape[0]):
+            for buf, v in zip(bufs, lane(s)):
+                buf.copy_(v)
+            res = minimize_lbfgsb(
+                fun, inits[s], lo_l[s], up_l[s], max_iters=max_iters,
+                ls_batch=ls_batch, final_grad=False, trials=trial)
+            xs.append(res.x)
+            funs.append(res.fun)
+    finally:
+        if trial is not None:
+            trial.close()
+    return torch.stack(xs), torch.stack(funs)
 
 
 def output_model(models: GpModel, j: int) -> GpModel:

@@ -19,6 +19,13 @@ multistart lanes; a finished lane keeps its state while the others run.
   flag-reading form returns (egobox_tpu's ``lax.while_loop``s stop early;
   frozen lanes do not change either way).
 
+The sequential search of the one-lane form with the plain objective runs
+its trials through ``FusedTrial``: a trial is one function of tensors that
+packs its value and both tests (Armijo, stuck) into one float64 vector,
+which the host reads once; ``minimize_lbfgsb(trials=)`` takes another
+object of that interface (gp/fit.py hands in trial_graph.py's
+``TrialGraph``, the trial as one CUDA graph for all the restarts of a fit).
+
 ``ls_batch > 1`` is the speculative line search of egobox_tpu: all
 ``ls_batch`` backtracking steps are evaluated at once (in the lockstep form
 as one call of the objective on k x ls_batch points) and the first
@@ -35,6 +42,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+#: Armijo's sufficient-decrease constant
+_C1 = 1e-4
 
 
 class LbfgsbResult(NamedTuple):
@@ -109,6 +119,52 @@ def _descent_direction(hist: _History, g: torch.Tensor) -> torch.Tensor:
     return direction if float(torch.dot(direction, g)) < 0 else -g
 
 
+def fused_trial(fun, x, direction, alpha, g, f, lower, upper, xtol):
+    """One trial of the sequential search: ``x_new = clip(x + alpha d)``,
+    its objective (no autograd, NaN/inf as +inf), and the packed float64
+    vector [f_new, Armijo passed, stuck] with ``f`` the iteration's value.
+    The tests are made in float64 as the host makes them on Python floats,
+    so that their outcome is the host's for any type of ``x``. Returns
+    (x_new, f_new, packed)."""
+    x_new = torch.clamp(x + alpha * direction, lower, upper)
+    with torch.no_grad():
+        f_new = _sanitize(fun(x_new))
+    dx = x_new - x
+    f64 = torch.float64
+    ok = f_new.to(f64) <= f.to(f64) + _C1 * torch.dot(g, dx).to(f64)
+    stuck = torch.max(torch.abs(dx)).to(f64) <= xtol
+    return x_new, f_new, torch.stack([f_new.to(f64), ok.to(f64),
+                                      stuck.to(f64)])
+
+
+class FusedTrial:
+    """The sequential search's trials of one objective, run eagerly:
+    ``start`` takes an iteration's point, direction, gradient, value, box
+    and ``xtol``; each ``step`` evaluates the next trial (alpha 1, 1/2,
+    1/4, ...) and returns [f_new, ok, stuck] from one host read; ``result``
+    is the last trial's (x_new, f_new)."""
+
+    def __init__(self, fun: Callable):
+        self.fun = fun
+
+    def start(self, x, direction, g, f, lower, upper, xtol) -> None:
+        self._args = (x, direction, g, f, lower, upper, xtol)
+        self._alpha = 1.0
+
+    def step(self) -> list:
+        x, direction, *rest = self._args
+        self._x_new, self._f_new, packed = fused_trial(
+            self.fun, x, direction, self._alpha, *rest)
+        self._alpha *= 0.5
+        return packed.tolist()
+
+    def result(self):
+        return self._x_new, self._f_new
+
+    def close(self) -> None:
+        """Nothing to free when the trials run eagerly."""
+
+
 def _value_and_grad(fun: Callable):
     def vg(x):
         with torch.enable_grad():
@@ -135,6 +191,7 @@ def minimize_lbfgsb(
     ls_batch: int = 0,
     final_grad: bool = True,
     graph_safe: bool = False,
+    trials: FusedTrial = None,
 ) -> LbfgsbResult:
     """Minimize ``fun`` (scalar, differentiable by autograd) over the box
     [lower, upper], from x0 (d,).
@@ -158,7 +215,16 @@ def minimize_lbfgsb(
 
     ``graph_safe``: the lockstep form without host reads (see the module
     docstring); it takes lockstep lanes only.
+
+    ``trials``: what runs the sequential search's trials of the plain
+    objective (``FusedTrial``'s interface, on this ``fun``; default
+    ``FusedTrial(fun)``); one lane, ``ls_batch <= 1`` and no residual
+    interface only.
     """
+    if trials is not None and (x0.ndim != 1 or ls_batch > 1
+                              or fun_and_res is not None):
+        raise ValueError("minimize_lbfgsb: trials takes one lane, the plain "
+                         "objective and the sequential search")
     if graph_safe and x0.ndim != 2:
         raise ValueError("minimize_lbfgsb: graph_safe takes lockstep lanes, "
                          "x0 of shape (k, d)")
@@ -171,13 +237,14 @@ def minimize_lbfgsb(
         return _minimize_lanes(fun, x0, lower, upper, max_iters, history,
                                max_ls, gtol, xtol, ls_batch, final_grad,
                                graph_safe)
-    c1 = 1e-4
+    c1 = _C1
 
     def clip(x):
         return torch.clamp(x, lower, upper)
 
     x = clip(x0)
-    if fun_and_res is None:
+    plain = fun_and_res is None
+    if plain:
         vg = _value_and_grad(fun)
 
         def fun_and_res(x):
@@ -215,6 +282,15 @@ def minimize_lbfgsb(
                 break
         return x_new, f_new, res_new
 
+    def search_fused():
+        # search_sequential's decisions on the packed tests of each trial
+        trials.start(x, direction, g, f, lower, upper, xtol)
+        for _ in range(max_ls):
+            _, ok, stuck = trials.step()
+            if ok or stuck:
+                break
+        return (*trials.result(), ())
+
     def search_speculative():
         # rounds of ls_batch halvings; a deeper round only while no trial
         # of the last one improves, down to the sequential 2^-max_ls reach
@@ -232,7 +308,13 @@ def minimize_lbfgsb(
         idx = armijo.index(True) if any(armijo) else fs.index(min(fs))
         return trials[idx]
 
-    search = search_speculative if ls_batch > 1 else search_sequential
+    if ls_batch > 1:
+        search = search_speculative
+    elif plain:
+        trials = FusedTrial(fun) if trials is None else trials
+        search = search_fused
+    else:
+        search = search_sequential
     it, done = 0, False
     while it < max_iters and not done:
         direction = _descent_direction(hist, g)
@@ -305,7 +387,7 @@ def _minimize_lanes(fun, x0, lower, upper, max_iters, history, max_ls, gtol,
     and with the sequential search (``ls_batch <= 1``) one per trial; none
     with ``graph_safe``, which runs every trip instead of stopping when the
     flags say that no lane needs it."""
-    c1 = 1e-4
+    c1 = _C1
     k, d = x0.shape
     dev = x0.device
     lo = torch.broadcast_to(lower, (k, d))

@@ -1070,6 +1070,94 @@ def test_make_mesh_joins_a_torchrun_style_group_on_the_cards(dev):
         assert "ranks [0, 1] of the mesh sit on one card, card 0:" in err
 
 
+def _griewank_design(n, seed):
+    x = np.random.default_rng(seed).uniform(-600.0, 600.0, (n, 10))
+    y = (1.0 + np.sum(x**2, axis=1) / 4000.0
+         - np.prod(np.cos(x / np.sqrt(np.arange(1, 11))), axis=1))
+    return x, y
+
+
+def test_a_fit_lane_after_lane_replays_one_trial_graph(dev, monkeypatch):
+    """A 2 000-point float64 fit of the benchmark's model (KPLS-1 squared
+    exponential, Griewank in d = 10, nugget 100 eps), restart after restart:
+    its line-search trials are one graph, captured once after one eager
+    warm-up and replayed by every trial, with the theta and likelihood of
+    the same fit with eager trials (1e-10 relative) and as many replays as
+    that fit made trials. Three fits in a row leave the allocated and the
+    reserved memory one fit leaves (the second and third capture into the
+    card's pool that the first left free; a pool of each fit's own would
+    add to the reserved memory); a larger fit, whose capture grows the
+    pool, lets the pool go; a float32 fit replays a graph too."""
+    import gc
+
+    from egobox_torch.gp import fit as tfit
+    from egobox_torch.ops.graph_stats import GraphStats
+    from egobox_torch.optim import trial_graph
+    from egobox_torch.optim.lbfgsb import FusedTrial
+
+    made = []  # the statistics of each fit's trials
+    real = tfit.TrialGraph
+
+    def record(fun):
+        trials = real(fun)
+        made.append(trials.stats)
+        return trials
+
+    class EagerTrials(FusedTrial):
+        def __init__(self, fun):
+            super().__init__(fun)
+            self.stats = GraphStats()
+            made.append(self.stats)
+
+        def step(self):
+            self.stats.eager += 1
+            return super().step()
+
+    x, y = _griewank_design(2000, 11)
+    xt = torch.tensor(x, device=dev)
+    yt = torch.tensor(y, device=dev)
+    kw = dict(corr="squared_exponential", kpls_dim=1, seed=5,
+              nugget=100 * np.finfo(np.float64).eps)
+
+    def fit(trials):
+        monkeypatch.setattr(tfit, "TrialGraph", trials)
+        model = tgp.fit_gp(xt, yt, **kw)
+        out = (model.theta.double().cpu(), float(model.likelihood))
+        del model
+        gc.collect()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.memory_allocated(),
+                     torch.cuda.memory_reserved())
+
+    (theta, lkh), mem1 = fit(record)
+    mem = [fit(record)[1] for _ in range(2)]
+    assert mem[-1] == mem1, (mem1, mem)
+    pool = trial_graph._POOLS[xt.device]
+    (theta_e, lkh_e), _ = fit(EagerTrials)
+    assert float(torch.max(torch.abs(theta / theta_e - 1))) <= 1e-10
+    assert abs(lkh / lkh_e - 1) <= 1e-10
+    graphed, eager = made[0], made[-1]
+    assert (graphed.captures, graphed.eager) == (1, 1), graphed
+    assert graphed.replays == eager.eager > 0, (graphed, eager)
+    assert all((m.captures, m.eager, m.replays) == (1, 1, graphed.replays)
+               for m in made[1:3])
+
+    assert trial_graph._POOLS[xt.device] is pool
+    monkeypatch.setattr(tfit, "TrialGraph", record)
+    x, y = _griewank_design(2300, 12)
+    tgp.fit_gp(torch.tensor(x, device=dev), torch.tensor(y, device=dev),
+               **kw)
+    assert xt.device not in trial_graph._POOLS
+
+    made.clear()
+    m32 = tgp.fit_gp(xt.float(), yt.float(), corr="squared_exponential",
+                     kpls_dim=1, seed=5)
+    assert m32.theta.dtype == torch.float32
+    assert bool(torch.isfinite(m32.likelihood))
+    assert len(made) == 1 and made[0].captures == 1
+    assert made[0].replays > 0 and made[0].eager == 1
+
+
 def test_a_capture_that_cannot_succeed_raises(dev):
     """An objective that reads a device value on the host (``.item()``)
     cannot be captured: the traced run raises when it captures, and does

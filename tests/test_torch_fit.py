@@ -175,3 +175,78 @@ def test_lanes_at_once_match_lane_after_lane_and_jax(corr, kpls_dim, ls_batch,
     mj = jgp.fit_gp(x, y, **kw)
     x_test = np.random.default_rng(8).uniform(-2.0, 2.0, (10, 3))
     _assert_same_model(at_once, mj, x_test)
+
+
+def _recording_trial_graphs(monkeypatch):
+    """The statistics of every ``TrialGraph`` the fits make."""
+    made = []
+    real = tfit.TrialGraph
+
+    def record(fun):
+        trials = real(fun)
+        made.append(trials.stats)
+        return trials
+
+    monkeypatch.setattr(tfit, "TrialGraph", record)
+    return made
+
+
+def test_fused_trials_fit_as_the_host_search(monkeypatch):
+    """A 300-point float64 fit on the benchmark's likelihood (KPLS-1
+    squared exponential, Griewank in d = 10 on +-600, constant trend,
+    nugget 100 eps), restart after restart: with its line-search trials
+    through one ``TrialGraph`` (eagerly on the CPU, one eager trial a
+    trial, no capture), the theta and likelihood of the search that reads
+    each trial's tests on the host."""
+    from test_torch_lbfgsb import _Counted, host_search
+
+    rng = np.random.default_rng(20261018)
+    x = rng.uniform(-600.0, 600.0, (300, 10))
+    y = (1.0 + np.sum(x**2, axis=1) / 4000.0
+         - np.prod(np.cos(x / np.sqrt(np.arange(1, 11))), axis=1))
+    kw = dict(corr="squared_exponential", kpls_dim=1, seed=3, device="cpu",
+              nugget=100 * np.finfo(np.float64).eps)
+    monkeypatch.setattr(tfit, "_LANES_MAX_POINTS", 0)
+    made = _recording_trial_graphs(monkeypatch)
+    fused = tgp.fit_gp(x, y, **kw)
+    assert len(made) == 1
+    stats = made[0]
+    assert stats.captures == stats.replays == 0 and stats.eager > 0
+
+    real = tfit.minimize_lbfgsb
+    counted = []
+
+    def on_the_host(fun, x0, lo, up, trials=None, **k):
+        counted.append(_Counted(fun))
+        return real(None, x0, lo, up, **k, **host_search(counted[-1]))
+
+    monkeypatch.setattr(tfit, "minimize_lbfgsb", on_the_host)
+    host = tgp.fit_gp(x, y, **kw)
+    assert torch.equal(fused.theta, host.theta)
+    assert float(fused.likelihood) == float(host.likelihood)
+    assert len(counted) == 11  # the init and 10 restarts
+    assert stats.eager == sum(c.trials - 1 for c in counted)
+
+
+def test_only_the_lane_after_lane_search_makes_a_trial_graph(monkeypatch):
+    """Lockstep lanes (a small design, or ``graph_safe``), the residual
+    route and the speculative search (``ls_batch`` > 1) make no
+    ``TrialGraph``; a fit restart after restart makes one."""
+    x, y = _data(40, 3, 7)
+    made = _recording_trial_graphs(monkeypatch)
+    kw = dict(n_start=2, max_iters=5, nugget=1e-6, device="cpu")
+    tgp.fit_gp(x, y, **kw)
+    tgp.fit_gp(x, y, ls_batch=8, **kw)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)[:, None]
+    one = torch.ones(3, dtype=torch.float64)
+    args = (xt, yt, torch.ones(40, dtype=torch.bool), 0.1 * one, 1e-2 * one,
+            1e1 * one, torch.ones(3, dtype=torch.bool), tfit.FitDraws(1))
+    tfit.fit_gp_core(*args, n_start=2, max_iters=5, nugget=1e-6,
+                     graph_safe=True)
+    monkeypatch.setattr(tfit, "_LANES_MAX_POINTS", 0)
+    tfit.fit_gp_core(*args, n_start=2, max_iters=5, nugget=1e-6,
+                     residual_api=True)
+    tgp.fit_gp(x, y, ls_batch=8, **kw)
+    assert made == []
+    tgp.fit_gp(x, y, **kw)
+    assert len(made) == 1 and made[0].eager > 0

@@ -208,3 +208,122 @@ def test_graph_safe_lbfgs_equals_flag_reading(ls_batch):
     with pytest.raises(ValueError, match="lockstep"):
         minimize_lbfgsb(lambda x: fun(x[None])[0], x0[0], lo, up,
                              graph_safe=True)
+
+
+# ---------------------------------------------------------------------------
+# The fused trial of the one-lane sequential search
+# ---------------------------------------------------------------------------
+
+
+def host_search(fun):
+    """``fun`` as the residual interface: ``minimize_lbfgsb`` then runs the
+    search that reads each trial's value, Armijo term and step on the host
+    (three reads a trial), as the plain objective ran before its trials were
+    fused. It evaluates the start's value apart from its gradient: one call
+    more than the plain objective."""
+    def fun_and_res(x):
+        with torch.no_grad():
+            return fun(x), ()
+
+    def grad_from_res(x, res):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(fun(xx), xx)
+        return g
+
+    return dict(fun_and_res=fun_and_res, grad_from_res=grad_from_res)
+
+
+class _Counted:
+    """The objective, with its calls counted as trials (no autograd) and
+    gradients."""
+
+    def __init__(self, fun):
+        self.fun, self.trials, self.grads = fun, 0, 0
+
+    def __call__(self, x):
+        if torch.is_grad_enabled():
+            self.grads += 1
+        else:
+            self.trials += 1
+        return self.fun(x)
+
+
+def _quad1(x):
+    return torch.sum((x - 0.3) ** 2 + 0.1 * x ** 4)
+
+
+def _nan_beyond(x):
+    f = torch.sum((x - 0.4) ** 2)
+    return torch.where(x[0] > 0.5, torch.full_like(f, torch.nan), f)
+
+
+def _kink_at_the_bound(x):
+    # every trial lands 5e-13 from the start, on a cliff: Armijo fails and
+    # the search stops on xtol (1e-12)
+    return torch.sum(-x + 1e3 * torch.relu(x - (1.0 - 2.5e-13)))
+
+
+def _flat_f32(x):
+    # in float32 the first trials' decrease (1e-9) is lost to rounding,
+    # and in float64 their Armijo term (1e-13) is not: they fail
+    return torch.sum(1.0 + 3.16e-5 * (x - 0.5) ** 2)
+
+
+#: name -> (objective, x0, lower, upper, dtype, xtol)
+FUSED_PROBLEMS = {
+    "quad-1d": (_quad1, [1.7], [-2.0], [2.0], torch.float64, 1e-12),
+    "rosenbrock-2d": (_rosen_t, [-1.2, 1.0], [-2.0, -2.0], [2.0, 2.0],
+                      torch.float64, 1e-12),
+    "nan-region-2d": (_nan_beyond, [-1.0, 1.0], [-2.0, -2.0], [2.0, 2.0],
+                      torch.float64, 1e-12),
+    "xtol-1d": (_kink_at_the_bound, [1.0 - 5e-13], [0.0], [1.0],
+                torch.float64, 1e-12),
+    "quad-2d-xtol": (_quad_t, [1.0, -1.0, 0.5, 0.0], LO, UP, torch.float64,
+                     1e-3),
+    "rosenbrock-2d-f32": (_rosen_t, [-1.2, 1.0], [-2.0, -2.0], [2.0, 2.0],
+                          torch.float32, 1e-12),
+    "flat-1d-f32": (_flat_f32, [0.0], [-1.0], [1.0], torch.float32, 1e-12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_PROBLEMS))
+def test_fused_trial_search_equals_the_host_search(name):
+    """The one-lane plain objective's search on the fused trial (one packed
+    read a trial) against the search that reads each test on the host:
+    the same x, value, iterations, convergence and objective calls. A NaN
+    trial counts as +inf in both; the kinked problem stops on xtol."""
+    fun, x0, lo, up, dtype, xtol = FUSED_PROBLEMS[name]
+
+    def t(v):
+        return torch.tensor(v, dtype=dtype)
+
+    kw = dict(max_iters=40, xtol=xtol)
+    fused, host = _Counted(fun), _Counted(fun)
+    a = minimize_lbfgsb(fused, t(x0), t(lo), t(up), **kw)
+    b = minimize_lbfgsb(None, t(x0), t(lo), t(up), **kw, **host_search(host))
+    assert torch.equal(a.x, b.x) and torch.equal(a.fun, b.fun)
+    assert a.x.dtype == dtype and a.fun.dtype == dtype
+    assert (a.n_iters, a.converged) == (b.n_iters, b.converged)
+    assert (fused.trials, fused.grads) == (host.trials - 1, host.grads)
+    assert fused.trials >= a.n_iters >= 1
+    if name == "nan-region-2d":
+        # the first trials land in the NaN region and back away from it
+        assert fused.trials > a.n_iters and bool(torch.isfinite(a.fun))
+    if name == "flat-1d-f32":
+        assert a.n_iters == 1 and fused.trials > 1
+    if name == "xtol-1d":
+        assert (a.n_iters, fused.trials, a.converged) == (1, 1, True)
+        assert torch.equal(a.x, t(x0))
+
+
+def test_trials_take_one_lane_and_the_sequential_search():
+    from egobox_torch.optim.lbfgsb import FusedTrial
+
+    x0 = torch.zeros((2, 2), dtype=torch.float64)
+    lo, up = x0[0] - 1, x0[0] + 1
+    trials = FusedTrial(_quad_t)
+    for args, kw in [((_quad_t, x0), {}), ((_quad_t, x0[0]), dict(ls_batch=8)),
+                     ((None, x0[0]), host_search(_quad1))]:
+        with pytest.raises(ValueError, match="trials takes one lane"):
+            minimize_lbfgsb(*args, lo, up, trials=trials, **kw)
